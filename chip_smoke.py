@@ -1,14 +1,25 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Builds the fleet kernels from ``src/repro_torch/csrc`` with nvcc, holds
-each against its plain torch version at the main path's shapes, then
-drives ``engine="torch"`` through the paper scenarios and the
-mega-scale federations and checks every result against the port's own
-batched engine. Needs one CUDA card; exits non-zero on any failure.
+Builds every kernel from ``src/repro_torch/csrc`` with nvcc (one process
+per source, all at once) and drives the port's two paths:
+
+* the simulator (phases ``kernels``, ``paper``, ``mega``): the fleet
+  kernels K1-K3 against their plain torch versions, then
+  ``engine="torch"`` through the paper scenarios and the mega-scale
+  federations, each result checked against the port's batched engine;
+* serving (phase ``serving``): the attention kernels K4 (flash prefill)
+  and K5 (paged decode) against their plain versions, full-width
+  tinyllama-1.1b in the multi-tenant engine on the card, its prefill
+  logits against the CPU on a 2-layer cut of the same weights, and both
+  serving scenarios on the card against the same scenarios on the CPU.
+
+Each path's launch counts are reset just before it and read just after.
+Needs one CUDA card; exits non-zero on any failure.
 
     python3 chip_smoke.py                 # everything
     python3 chip_smoke.py --phases env,kernels
+    python3 chip_smoke.py --phases env,serving
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -29,7 +40,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "paper", "mega")
+PHASES = ("env", "kernels", "paper", "mega", "serving")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 LAT_RTOL = 1e-5         # f32 latency: erfinv/exp implementations
@@ -42,6 +53,20 @@ GAME_TENANTS = 10_000
 GAME_L = 6848
 CHUNK_S = 120
 DEVICE = "cuda"
+# serving: full-width tinyllama-1.1b, 2 tenants × 4 requests of 1024
+# prompt tokens and 32 new tokens; the attention kernels at its shapes
+SERVE_ARCH = "tinyllama-1.1b"
+SERVE_TENANTS = 2
+SERVE_REQUESTS = 4
+SERVE_PROMPT = 1024
+SERVE_NEW = 32
+SERVE_SMAX = 2048
+SERVE_CUT_LAYERS = 2        # CPU-vs-card check on a cut of the weights
+SERVE_CUT_PROMPT = 512
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
+LOGIT_TOL = 5e-2            # × max |logit|, bf16 CPU vs card
+FLEET_KERNELS = ("latency_scale", "row_draw", "poisson")
+SERVING_KERNELS = ("flash_attention", "paged_attention")
 
 
 def log(msg: str) -> None:
@@ -105,6 +130,35 @@ def all_kernels_ms(fn, reps: int = 5) -> float:
     plain versions and library calls are many kernels with host work in
     between); the CUDA-event time when the profiler records nothing."""
     return kernel_times(fn, "", reps=reps)["ms"]
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed between two CUDA events (median of
+    ``reps``), divided by ``n``. Replay issues no host work per call, so
+    this is the device's own time for the call's kernels, launch gaps
+    inside the graph included and the host's dispatch excluded."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
 
 
 def smi_line() -> str:
@@ -438,6 +492,336 @@ def phase_mega() -> dict:
     return {"ok": ok, "rows": rows}
 
 
+# ---------------------------------------------------------------- phase 5
+def _attn_case(att, label, kind, args, kw, dtype, bound, library):
+    """One attention kernel case: the kernel against its plain version on
+    the same CUDA tensors, and its, the plain version's and one library
+    call's device times (:func:`graph_ms`; torch.profiler lost kernel
+    records in the later sessions of a long run), with the CUDA-event
+    time of one call from the host beside them."""
+    import torch
+
+    kernel = att.flash_attention if kind == "flash" else att.paged_attention
+    plain = (att.flash_attention_plain if kind == "flash"
+             else att.paged_attention_plain)
+    got = kernel(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    return dict(case=label, dtype=dtype, max_abs_err=err,
+                tolerance=ATTN_TOL[dtype],
+                ms=graph_ms(lambda: kernel(*args, **kw)),
+                event_ms=cuda_ms(lambda: kernel(*args, **kw)),
+                ms_source="cuda graph",
+                plain_ms=graph_ms(lambda: plain(*args, **kw), n=5),
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=graph_ms(library),
+                ok=err <= ATTN_TOL[dtype])
+
+
+def serving_kernel_checks() -> dict:
+    """K4 and K5 against their plain versions at the engine's shapes:
+    (B=1, H=32, KH=4, D=64) prefill and (B=8, H=32, KH=4, D=64, page 16)
+    decode."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as att
+
+    rng = np.random.default_rng(21)
+    H, KH, D = 32, 4, 64
+
+    def rand(shape, dtype):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.to(device=DEVICE, dtype=getattr(torch, dtype))
+
+    flash = []
+    for S, causal, window, dtype in ((SERVE_PROMPT, True, 0, "bfloat16"),
+                                     (6, True, 0, "bfloat16"),
+                                     (130, True, 0, "bfloat16"),
+                                     (SERVE_PROMPT, True, 256, "bfloat16"),
+                                     (130, False, 0, "bfloat16"),
+                                     (130, True, 0, "float32")):
+        q, k, v = (rand(s, dtype) for s in ((1, H, S, D), (1, KH, S, D),
+                                            (1, KH, S, D)))
+        if window:
+            pos = torch.arange(S, device=DEVICE)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+
+            def lib(q=q, k=k, v=v, band=band):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                      enable_gqa=True)
+        else:
+            def lib(q=q, k=k, v=v, causal=causal):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal,
+                                                      enable_gqa=True)
+        label = (f"S={S} {'causal' if causal else 'non-causal'}"
+                 + (f" window={window}" if window else ""))
+        flash.append(_attn_case(
+            att, label, "flash", (q, k, v),
+            dict(causal=causal, window=window), dtype,
+            att.flash_attention_bound_ms(1, H, KH, S, S, D, causal=causal,
+                                         window=window,
+                                         itemsize=q.element_size()), lib))
+
+    B, page, mp = SERVE_TENANTS * SERVE_REQUESTS, 16, SERVE_SMAX // 16
+    lengths_np = rng.integers(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
+                              B).astype(np.int32)
+    lengths = torch.from_numpy(lengths_np).to(DEVICE)
+    valid = (torch.arange(SERVE_SMAX, device=DEVICE)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    paged = []
+    for mode, dtype in (("identity view of a dense (8, 2048, 4, 64) cache",
+                         "bfloat16"),
+                        ("random distinct pages", "bfloat16"),
+                        ("random distinct pages", "float32")):
+        q = rand((B, H, D), dtype)
+        if mode.startswith("identity"):
+            kc, vc = (rand((B, SERVE_SMAX, KH, D), dtype) for _ in range(2))
+            kp, page = att.dense_cache_pages(kc)
+            vp, _ = att.dense_cache_pages(vc)
+            table = att.identity_page_table(B, SERVE_SMAX, page, DEVICE)
+        else:
+            P = 4 * B * mp
+            kp, vp = (rand((KH, P, page, D), dtype) for _ in range(2))
+            table = torch.from_numpy(np.stack([
+                rng.choice(P, size=mp, replace=False) for _ in range(B)
+            ]).astype(np.int32)).to(DEVICE)
+            kc = kp[:, table.long()].permute(1, 0, 2, 3, 4).reshape(
+                B, KH, mp * page, D).transpose(1, 2)
+            vc = vp[:, table.long()].permute(1, 0, 2, 3, 4).reshape(
+                B, KH, mp * page, D).transpose(1, 2)
+
+        def lib(q=q, kc=kc, vc=vc):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=valid, enable_gqa=True)
+        paged.append(_attn_case(
+            att, mode, "paged", (q, kp, vp, table, lengths), {}, dtype,
+            att.paged_attention_bound_ms(lengths_np, KH, H, D, mp, page,
+                                         itemsize=q.element_size()), lib))
+    out = {}
+    for name, cases in (("flash_attention", flash),
+                        ("paged_attention", paged)):
+        main = dict(cases[0])
+        main["shape"] = main.pop("case")
+        main["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+        main["ok"] = all(c["ok"] for c in cases)
+        main["modes"] = {c["case"] + f" {c['dtype']}": c for c in cases[1:]}
+        out[name] = main
+        for c in cases:
+            log(f"[serving kernel] {name} {c['case']} {c['dtype']}: max err "
+                f"{c['max_abs_err']:.3g} (tol {c['tolerance']:g}), kernel "
+                f"{c['ms']:.4f} ms ({c['ms_source']}; events "
+                f"{c['event_ms']:.4f} ms), plain {c['plain_ms']:.4f} ms, "
+                f"library {c['library_ms']:.4f} ms, bound "
+                f"{c['bound_ms'] * 1e3:.2f} µs ({c['bound_by']}) "
+                f"{'ok' if c['ok'] else 'FAIL'}")
+    return out
+
+
+def _timed(fn, sink: list):
+    """``fn`` wrapped to append its synchronized wall (ms) to ``sink``."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return run
+
+
+def serving_engine(fleet) -> dict:
+    """Full-width tinyllama-1.1b in the multi-tenant engine on the card:
+    every request completes, and K4 / K5 launch once per layer per
+    prefill / decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TenantSpec
+    from repro_torch.serving import EngineConfig, MultiTenantEngine
+    from repro_torch.serving.scheduler import reserved_pages
+
+    cfg = get_config(SERVE_ARCH)
+    pages = -(-(SERVE_PROMPT + SERVE_NEW) // 16)
+    eng = MultiTenantEngine(EngineConfig(
+        page_size=16, slot_cap=8, max_seq_len=SERVE_SMAX, policy="none",
+        capacity_slots=SERVE_TENANTS * SERVE_REQUESTS,
+        capacity_pages=SERVE_TENANTS * SERVE_REQUESTS * pages,
+        default_units=SERVE_REQUESTS), seed=0, device=DEVICE)
+    prefill_ms, decode_ms = [], []
+    names = [f"tenant{i}" for i in range(SERVE_TENANTS)]
+    for name in names:
+        if not eng.add_tenant(TenantSpec(name=name, slo_latency=60.0), cfg):
+            raise RuntimeError(f"{name} not admitted")
+        rt = eng.tenants[name]
+        rt._prefill = _timed(rt._prefill, prefill_ms)
+        rt._decode = _timed(rt._decode, decode_ms)
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, SERVE_PROMPT)]
+               for _ in range(SERVE_TENANTS * SERVE_REQUESTS)]
+    reqs = [eng.submit(name, prompts[i * SERVE_REQUESTS + j],
+                       max_new_tokens=SERVE_NEW)
+            for i, name in enumerate(names) for j in range(SERVE_REQUESTS)]
+    assert reserved_pages(reqs[0], 16) == pages
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.drain(max_steps=4 * SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = sum(r.phase.value == "done" and len(r.generated) == SERVE_NEW
+               for r in reqs)
+    tokens = sum(len(r.generated) for r in reqs)
+    L = cfg.num_layers
+    counts = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
+    ok = (done == len(reqs)
+          and counts["flash_attention"] == L * len(prefill_ms)
+          and counts["paged_attention"] == L * len(decode_ms))
+    row = {"arch": SERVE_ARCH, "layers": L, "tenants": SERVE_TENANTS,
+           "requests": len(reqs), "completed": done, "prompt": SERVE_PROMPT,
+           "new_tokens": SERVE_NEW, "prefills": len(prefill_ms),
+           "decode_steps": len(decode_ms), "launches": counts,
+           "prefill_ms_per_request": statistics.median(prefill_ms),
+           "decode_ms_per_step": statistics.median(decode_ms),
+           "engine_wall_s": wall, "generated_tokens": tokens,
+           "generated_tokens_per_s": tokens / wall,
+           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[serving] engine {json.dumps(row)} {'ok' if ok else 'FAIL'}")
+    row["ok"] = ok
+    row["cut_check"] = serving_cut_check(eng.tenants[names[0]], cfg,
+                                         reqs[0].req.prompt)
+    row["ok"] &= row["cut_check"]["ok"]
+    return row, eng.tenants[names[0]], reqs[0].req.prompt
+
+
+def serving_device_time(row, rt, prompt) -> dict:
+    """Device time of one full-width prefill and of one decode step at
+    the engine's batch (:func:`graph_ms` over the model's own functions,
+    after the run), and from them the share of the engine's wall in
+    which the card had nothing to do (the rest is the host dispatching
+    ~75 torch operations a layer)."""
+    import torch
+
+    tokens = torch.tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    B = rt.cache["k"].shape[1]
+    token = torch.zeros(B, dtype=torch.int64, device=DEVICE)
+    pos = torch.full((B,), SERVE_PROMPT, dtype=torch.int64, device=DEVICE)
+    pre = graph_ms(lambda: rt.model.prefill_fn(rt.params,
+                                               {"tokens": tokens}), n=1)
+    dec = graph_ms(lambda: rt.model.decode_fn(rt.params, rt.cache, token,
+                                              pos), n=1)
+    busy = row["prefills"] * pre + row["decode_steps"] * dec
+    out = {"prefill_device_ms": pre, "decode_step_device_ms": dec,
+           "engine_device_busy_s": busy / 1e3,
+           "idle_share": 1.0 - busy / 1e3 / row["engine_wall_s"]}
+    log(f"[serving] engine device time {json.dumps(out)}")
+    return out
+
+
+def serving_cut_check(rt, cfg, prompt) -> dict:
+    """The first SERVE_CUT_LAYERS layers of a tenant's full-width weights
+    through the port on the card and on the CPU: the prefill logits must
+    agree within LOGIT_TOL × max |logit| (bf16 rounds at other places on
+    the two devices)."""
+    import dataclasses as dc
+
+    import torch
+    from torch import nn
+
+    from repro_torch.models import build_model
+
+    cut_cfg = dc.replace(cfg, num_layers=SERVE_CUT_LAYERS)
+    on_gpu = build_model(cut_cfg, device=DEVICE)
+    cut = on_gpu.params
+    cut.tok, cut.ln_f = rt.params.tok, rt.params.ln_f
+    cut.layers = nn.ModuleList(list(rt.params.layers)[:SERVE_CUT_LAYERS])
+    on_cpu = build_model(cut_cfg, device="cpu")
+    on_cpu.params.load_state_dict({k: v.cpu()
+                                   for k, v in cut.state_dict().items()})
+    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
+    gpu_logits, _ = on_gpu.prefill_fn(cut, {"tokens": tokens.to(DEVICE)})
+    t0 = time.perf_counter()
+    cpu_logits, _ = on_cpu.prefill_fn(on_cpu.params, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    err = float((gpu_logits.cpu() - cpu_logits).abs().max())
+    scale = float(cpu_logits.abs().max())
+    ok = (bool(torch.isfinite(gpu_logits).all()) and err <= LOGIT_TOL * scale
+          and tuple(gpu_logits.shape) == (1, cfg.padded_vocab))
+    out = {"layers": SERVE_CUT_LAYERS, "prompt": SERVE_CUT_PROMPT,
+           "max_abs_logit_err": err, "max_abs_logit": scale,
+           "tolerance": LOGIT_TOL * scale, "cpu_prefill_s": cpu_s, "ok": ok}
+    log(f"[serving] cut check {json.dumps(out)}")
+    return out
+
+
+def _serving_signature(res) -> dict:
+    """Every outcome field the serving federation's tests read, per
+    policy (wall-clock overheads excluded)."""
+    sig = {}
+    for key, r in res.results.items():
+        sig[key] = {
+            "vr": r.violation_rate, "per_node_vr": r.per_node_vr,
+            "accounting": [r.total_requests, r.total_violations,
+                           r.submitted, r.completed, r.cloud_requests,
+                           r.shed, r.tokens, r.requests_conserved],
+            "faults": [r.failed_nodes, r.recovered_nodes, r.replaced,
+                       r.cloud],
+            "placements": [(p.t, p.tenant, p.node, p.kind, p.source)
+                           for p in r.placements],
+            "failovers": sum(p.kind == "failover" for p in r.placements),
+            "bands": r.token_latency_bands,
+            "latencies": {n: nr.latencies.tolist()
+                          for n, nr in r.node_results.items()},
+        }
+    return sig
+
+
+def serving_scenarios(fleet) -> dict:
+    """Both serving scenarios on the card, then on the CPU: every result
+    field must match exactly (outcomes depend on the virtual clock and
+    token counts alone)."""
+    import torch
+
+    from repro_torch.sim import SCENARIOS, run_scenario
+
+    ok = True
+    rows = []
+    for name in ("serving_edge_pair", "serving_timeout_retry"):
+        sc = SCENARIOS[name]
+        before = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
+        t0 = time.perf_counter()
+        on_gpu = run_scenario(dataclasses.replace(
+            sc, backend_options={"device": DEVICE}))
+        gpu_s = time.perf_counter() - t0
+        launched = {k: fleet.LAUNCHES[k] - before[k]
+                    for k in SERVING_KERNELS}
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)     # tiny tensors: threads only add overhead
+        try:
+            on_cpu = run_scenario(dataclasses.replace(
+                sc, backend_options={"device": "cpu"}))
+        finally:
+            torch.set_num_threads(threads)
+        same = _serving_signature(on_gpu) == _serving_signature(on_cpu)
+        good = same and all(n > 0 for n in launched.values())
+        ok &= good
+        row = {"scenario": name, "cuda_wall_s": gpu_s, "launches": launched,
+               "identical_to_cpu": same,
+               "vr": {k: o.violation_rate for k, o in on_gpu.outcomes.items()},
+               "completed": {k: r.completed
+                             for k, r in on_gpu.results.items()}}
+        rows.append(row)
+        log(f"[serving] scenario {json.dumps(row)} {'ok' if good else 'FAIL'}")
+    return {"ok": ok, "rows": rows}
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -465,28 +849,46 @@ def main(argv=None) -> int:
     kern = phase_kernels(fleet) if "kernels" in phases else {}
     failures += [f"kernel {k}" for k, r in kern.items() if not r["ok"]]
 
-    main_path = [p for p in ("paper", "mega") if p in phases]
+    # each path: counts set to 0 just before it, read just after
     launches = {}
-    if main_path:
+    if "paper" in phases or "mega" in phases:
         fleet.reset_launches()
         if "paper" in phases and not phase_paper()["ok"]:
             failures.append("paper scenarios")
         if "mega" in phases and not phase_mega()["ok"]:
             failures.append("mega-scale federations")
         torch.cuda.synchronize()
-        launches = dict(fleet.LAUNCHES)
-        log(f"[launches] main path: {json.dumps(launches)}")
-        failures += [f"kernel {k} never launched on the main path"
-                     for k, n in launches.items() if n == 0]
+        launches.update({k: fleet.LAUNCHES[k] for k in FLEET_KERNELS})
+        log(f"[launches] simulator path: {json.dumps(launches)}")
+        failures += [f"kernel {k} never launched on the simulator path"
+                     for k in FLEET_KERNELS if launches[k] == 0]
+    if "serving" in phases:
+        kern.update(serving_kernel_checks())
+        failures += [f"kernel {k}" for k in SERVING_KERNELS
+                     if not kern[k]["ok"]]
+        fleet.reset_launches()
+        row, rt, prompt = serving_engine(fleet)
+        if not row["ok"]:
+            failures.append("full-width serving engine")
+        if not serving_scenarios(fleet)["ok"]:
+            failures.append("serving scenarios on the card")
+        torch.cuda.synchronize()
+        served = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
+        launches.update(served)
+        log(f"[launches] serving path: {json.dumps(served)}")
+        failures += [f"kernel {k} never launched on the serving path"
+                     for k in SERVING_KERNELS if served[k] == 0]
+        serving_device_time(row, rt, prompt)
 
     record = []
-    sources = {"latency_scale": "src/repro_torch/csrc/latency_scale.cu",
-               "row_draw": "src/repro_torch/csrc/row_draw.cu",
-               "poisson": "src/repro_torch/csrc/poisson.cu"}
+    sources = {name: f"src/repro_torch/csrc/{name}.cu"
+               for name in FLEET_KERNELS + SERVING_KERNELS}
     replaces = {
         "latency_scale": "src/repro/sim/engines/jax_backend.py:151",
         "row_draw": "src/repro/sim/engines/jax_backend.py:124",
-        "poisson": "src/repro/sim/engines/jax_backend.py:145"}
+        "poisson": "src/repro/sim/engines/jax_backend.py:145",
+        "flash_attention": "src/repro/kernels/flash_attention.py:29",
+        "paged_attention": "src/repro/kernels/paged_attention.py:34"}
     for name, r in kern.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
@@ -498,7 +900,7 @@ def main(argv=None) -> int:
         if "modes" in r:
             entry["modes"] = {m: {k: v[k] for k in (
                 "max_abs_err", "ms", "event_ms", "plain_ms", "bound_ms",
-                "bound_by")}
+                "bound_by") + (("library_ms",) if "library_ms" in v else ())}
                 for m, v in r["modes"].items()}
         record.append(entry)
     if failures:

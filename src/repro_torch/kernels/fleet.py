@@ -22,6 +22,10 @@ CUDA tensors it launches the kernel or raises (no fallback). Each
 launch adds one to :data:`LAUNCHES`, so a run can show that it went
 through the kernels.
 
+The build and launch machinery here (nvcc at first use, ctypes, the
+launch counts) also serves the attention kernels K4 and K5 of
+:mod:`repro_torch.kernels.attention`.
+
 Random bits: ``threefry2x32`` with 20 rounds, JAX's partitionable
 scheme (key ``(k0, k1)``, counter ``(hi, lo)``, bits ``x0 ^ x1``). The
 plain versions compute the same words with int64 tensors masked to 32
@@ -42,7 +46,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-LAUNCHES = {"latency_scale": 0, "row_draw": 0, "poisson": 0}
+LAUNCHES = {"latency_scale": 0, "row_draw": 0, "poisson": 0,
+            "flash_attention": 0, "paged_attention": 0}
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -91,21 +96,28 @@ def check_device(device) -> torch.device:
 
 # ---------------------------------------------------------------- build
 _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("latency_scale", "row_draw", "poisson")
+_SOURCES = ("latency_scale", "row_draw", "poisson", "flash_attention",
+            "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_INT = ctypes.c_int
 _ARGTYPES = {
     "latency_scale_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "row_draw_f32": [ctypes.c_int, _P, _P, ctypes.c_uint, _P, _P, _P, _P,
                      _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float,
                      ctypes.c_float, _P],
     "poisson_i32": [_P, _P, ctypes.c_uint, _P, _P, _I64, _I64, _P],
+    "flash_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _INT, _INT, _INT,
+                            _INT, _INT, _P, _INT, _INT, ctypes.c_float, _P],
+    "paged_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                            _INT, _INT, _INT, _P, ctypes.c_float, _P],
 }
 _ENTRY = {"latency_scale": "latency_scale_f32", "row_draw": "row_draw_f32",
-          "poisson": "poisson_i32"}
+          "poisson": "poisson_i32", "flash_attention": "flash_attention_fwd",
+          "paged_attention": "paged_attention_fwd"}
 
 
 def build_dir() -> Path:
@@ -124,14 +136,14 @@ def _nvcc() -> str:
     cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
     if cuda.exists():
         return str(cuda)
-    raise RuntimeError("nvcc not found: the fleet kernels are compiled at "
-                       "first use and need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the kernels are compiled at first "
+                       "use and need the CUDA toolkit")
 
 
 def _lib_path(name: str, extra: tuple) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
-    for f in (f"{name}.cu", "threefry.cuh"):
-        h.update((_SRC_DIR / f).read_bytes())
+    for f in [_SRC_DIR / f"{name}.cu", *sorted(_SRC_DIR.glob("*.cuh"))]:
+        h.update(f.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 

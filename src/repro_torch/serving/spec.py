@@ -2,9 +2,9 @@
 
 These types shape a serving scenario without importing either the
 serving engine or the simulation layer, so the scenario API can build
-:class:`ServingSpec` instances at import time. The serving engine and
-its federation are not part of this package yet: a scenario with
-``engine="serving"`` is rejected by the engine registry.
+:class:`ServingSpec` instances at import time while
+:class:`~repro_torch.serving.federation.ServingFederation` — which needs
+both worlds — loads lazily at run time.
 """
 from __future__ import annotations
 

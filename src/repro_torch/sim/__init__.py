@@ -16,6 +16,8 @@ batched    bitwise     numpy-substream large fleets (10^2-10^4
                                        per chunk
 torch      tolerance   counter-        mega-scale fleets (10^5+);
                        threefry        hand-written GPU kernels
+serving    token-level engine-owned    real LLM engine under the same
+                                       control plane
 ========== =========== =============== =============================
 
 * **bitwise** — the three numpy engines realise the identical random
@@ -28,14 +30,14 @@ torch      tolerance   counter-        mega-scale fleets (10^5+);
   pinned by tests/test_torch_engine.py (see
   :mod:`repro_torch.sim.engines.torch_backend` for exactly where and
   why bitwise breaks).
-
-The serving engine (``engine="serving"``, a real multi-tenant LLM
-engine under the same control plane) is not ported yet: the registry
-rejects it, so the two serving scenarios in ``SCENARIOS`` raise
-``ValueError`` when run.
+* **token-level** — the serving engine replaces the latency model with
+  a real multi-tenant LLM engine; only the control plane is shared. Its
+  outcomes depend on the virtual clock and token counts alone, so they
+  equal the JAX package's exactly, on the card (backend option
+  ``device``, default ``"cuda"``) as on the CPU.
 
 Fault-model support (``Scenario.faults`` / :class:`FaultSpec`): every
-fault kind fires at a chunk boundary and is honoured by **all four**
+fault kind fires at a chunk boundary and is honoured by **all five**
 engines and both control planes —
 
 =============== ==================================== =================
@@ -43,8 +45,8 @@ fault           effect                               engines
 =============== ==================================== =================
 NodeFailure     node dies; live tenants fail over    all (scalar /
 (+ recover_t)   to survivors or the Cloud; with      vectorized /
-                ``recover_t`` the node rejoins and   batched / torch)
-                Cloud-fallback refugees are drained
+                ``recover_t`` the node rejoins and   batched / torch /
+                Cloud-fallback refugees are drained  serving)
                 back onto the Edge by the placement
                 policy (Age_s/Loyalty_s carried)
 NodeDegradation capacity shrinks to                  all
@@ -58,7 +60,10 @@ WanFault        per-node WAN latency bump for        all
 =============== ==================================== =================
 
 The numpy trio stays bitwise-identical through every fault path (no
-fault draws new randomness).
+fault draws new randomness); the serving federation additionally
+offers per-request timeouts with capped-backoff retries and graceful
+load shedding (:class:`repro_torch.serving.spec.ServingSpec` knobs, all
+off by default).
 
 Observability (``repro_torch.obs``)
 ===================================

@@ -72,13 +72,15 @@ Named paper scenarios live in the :data:`SCENARIOS` registry
 (``paper_game_32``, ``paper_face_detection``, ``mixed_fleet``,
 ``hetero_one_big_many_small``, ``proactive_game_32``,
 ``proactive_face_detection``, ``node_failure_midrun``,
-``serving_edge_pair`` — the latter needs the serving engine, which this
-package does not carry yet, so the registry rejects it) and can be run
-from the command line — with no ``--scenario`` every entry whose engine
-is registered runs, and ``--engine torch`` moves them onto the GPU
-engine::
+``serving_edge_pair`` — the latter drives the REAL multi-tenant LLM
+engine (:mod:`repro_torch.serving.federation`) with ``engine="serving"``
+and a :class:`~repro_torch.serving.spec.ServingSpec`) and can be run
+from the command line — with no ``--scenario`` every entry runs,
+``--engine torch`` moves the simulator scenarios onto the GPU engine,
+and ``--device`` names the device of the torch and serving engines
+(default ``cuda``)::
 
-    PYTHONPATH=src python -m repro_torch.sim.scenario --quick
+    PYTHONPATH=src python -m repro_torch.sim.scenario --quick --device cpu
     PYTHONPATH=src python -m repro_torch.sim.scenario --quick --engine torch
 
 Equivalence contract: a default least-loaded/homogeneous ``Scenario``
@@ -100,7 +102,6 @@ import numpy as np
 
 from repro_torch.core import PricingModel
 from repro_torch.sim.edgesim import WAN_EXTRA_LATENCY, resolve_engine
-from repro_torch.sim.engines import ENGINE_BACKENDS
 from repro_torch.sim.federation import (PLACEMENTS, SWEEP_POLICIES,
                                         FederationConfig, FederationResult,
                                         PlacementEvent, paper_capacity_units)
@@ -947,9 +948,7 @@ register_scenario(Scenario(
 # ---------------------------------------------------------------- CLI smoke
 def main(argv: list[str] | None = None) -> int:
     """Registry smoke runner (the CI step): run named scenarios and fail
-    on any exception or non-finite violation rate. By default every
-    entry whose engine is registered runs (the serving scenarios wait
-    for the serving engine's port)."""
+    on any exception or non-finite violation rate."""
     ap = argparse.ArgumentParser(
         description="Run named federation scenarios from the registry.")
     ap.add_argument("--scenario", action="append", default=None,
@@ -960,24 +959,22 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--list", action="store_true",
                     help="list registry entries and exit")
     ap.add_argument("--engine", default=None,
-                    help="run every scenario on this engine instead of "
-                    "its own (e.g. torch)")
+                    help="run every simulator scenario on this engine "
+                    "instead of its own (e.g. torch)")
     ap.add_argument("--device", default=None,
-                    help="backend_options device for --engine torch "
-                    "(default: cuda)")
+                    help="backend_options device of the torch and serving "
+                    "engines (default: cuda)")
     args = ap.parse_args(argv)
     if args.list:
         print(format_registry())
         return 0
     failures = []
-    names = args.scenario or [n for n, sc in SCENARIOS.items()
-                              if sc.engine in ENGINE_BACKENDS]
-    for name in names:
+    for name in (args.scenario or list(SCENARIOS)):
         if name not in SCENARIOS:
             raise ValueError(f"unknown scenario {name!r}; have "
                              f"{sorted(SCENARIOS)}")
         sc = SCENARIOS[name]
-        if args.engine is not None:
+        if args.engine is not None and sc.engine != "serving":
             sc = dataclasses.replace(sc, engine=args.engine)
         if args.device is not None:
             sc = dataclasses.replace(sc, backend_options={

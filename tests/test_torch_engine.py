@@ -39,15 +39,18 @@ def _torch(name, **opts):
 # ------------------------------------------------------------- registry
 def test_registry_contracts():
     assert set(ENGINES) == {"scalar", "vectorized", "batched", "torch"}
-    assert set(ENGINE_BACKENDS) == set(ENGINES)
+    assert set(ENGINE_BACKENDS) == set(ENGINES) | {"serving"}
     for name in ("scalar", "vectorized", "batched"):
         b = resolve_engine(name)
         assert (b.contract, b.rng_scheme) == ("bitwise", "numpy-substream")
     b = resolve_engine("torch")
     assert (b.name, b.contract, b.rng_scheme) == (
         "torch", "tolerance", "counter-threefry")
-    with pytest.raises(ValueError, match="serving"):
-        resolve_engine("serving")
+    b = resolve_engine("serving")
+    assert (b.name, b.contract, b.rng_scheme, b.node_capable) == (
+        "serving", "token-level", "engine-owned", False)
+    with pytest.raises(ValueError, match="engine"):
+        resolve_engine("no-such-engine")
 
 
 def test_engine_matrix_reflects_registry():

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` loads neither jax
-nor the JAX package, no port source imports either, and the GPU engine
-refuses to run without a card unless the caller asks for the CPU."""
+"""The port stands alone: importing ``repro_torch`` (the sim path and
+the serving path) loads neither jax nor the JAX package, no port source
+imports either, and the GPU engine refuses to run without a card unless
+the caller asks for the CPU."""
 import dataclasses
 import os
 import re
@@ -19,6 +20,9 @@ import sys
 import repro_torch, repro_torch.sim, repro_torch.core, repro_torch.obs
 import repro_torch.kernels.fleet
 import repro_torch.sim.engines.torch_backend
+import repro_torch.kernels.attention, repro_torch.models
+import repro_torch.serving.engine, repro_torch.serving.federation
+import repro_torch.launch.serve, repro_torch.configs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

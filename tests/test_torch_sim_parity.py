@@ -82,8 +82,16 @@ def test_traced_run_bitwise_equal_to_reference():
 
 
 def test_serving_scenarios_rejected_by_registry():
-    with pytest.raises(ValueError, match="serving"):
-        P.run_scenario("serving_edge_pair", quick=True)
+    """The serving backend's validation refuses a serving scenario it
+    cannot run: one with no ServingSpec, or one whose fleet a class
+    spec does not cover (the serving scenarios themselves run, and are
+    held to the reference in tests/test_torch_serving_federation.py)."""
+    sc = P.SCENARIOS["serving_edge_pair"]
+    with pytest.raises(ValueError, match="no ServingSpec"):
+        P.run_scenario(dataclasses.replace(sc, serving=None), quick=True)
+    bad = dataclasses.replace(sc.serving, classes=sc.serving.classes[:1])
+    with pytest.raises(ValueError, match="ServingClassSpec"):
+        P.run_scenario(dataclasses.replace(sc, serving=bad), quick=True)
 
 
 def _mixed_batch(pkg):
