@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds every kernel from ``src/repro_torch/csrc`` with nvcc (one process
-per source, all at once) and drives the port's two paths:
+per source, all at once) and drives the port's three paths:
 
 * the simulator (phases ``kernels``, ``paper``, ``mega``): the fleet
   kernels K1-K3 against their plain torch versions, then
@@ -12,7 +12,12 @@ per source, all at once) and drives the port's two paths:
   and K5 (paged decode) against their plain versions, full-width
   tinyllama-1.1b in the multi-tenant engine on the card, its prefill
   logits against the CPU on a 2-layer cut of the same weights, and both
-  serving scenarios on the card against the same scenarios on the CPU.
+  serving scenarios on the card against the same scenarios on the CPU;
+* recurrent serving (phase ``recurrent``): the recurrent kernels K6
+  (RWKV-6) and K7 (Mamba-2 SSD) against their plain versions, K4/K5 at
+  zamba2's head dim 80, one full-width rwkv6-3b and one zamba2-2.7b
+  tenant in the engine on the card, and their prefill logits against
+  the CPU on cuts of the same weights.
 
 Each path's launch counts are reset just before it and read just after.
 Needs one CUDA card; exits non-zero on any failure.
@@ -20,6 +25,7 @@ Needs one CUDA card; exits non-zero on any failure.
     python3 chip_smoke.py                 # everything
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,serving
+    python3 chip_smoke.py --phases env,recurrent
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -40,7 +47,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "paper", "mega", "serving")
+PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 LAT_RTOL = 1e-5         # f32 latency: erfinv/exp implementations
@@ -67,6 +74,21 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 LOGIT_TOL = 5e-2            # × max |logit|, bf16 CPU vs card
 FLEET_KERNELS = ("latency_scale", "row_draw", "poisson")
 SERVING_KERNELS = ("flash_attention", "paged_attention")
+# recurrent serving: one full-width rwkv6-3b and one zamba2-2.7b tenant,
+# the same requests; the CPU-vs-card cuts keep 2 RWKV-6 layers and
+# zamba2's first group (its shared block and 6 Mamba-2 layers). In f32
+# the card's logits must agree with the CPU's within REC_F32_TOL × max
+# |logit|. In the served bf16 the card's logits are held to the CPU's
+# f32 ones, within BF16_NOISE_FACTOR × the CPU's own bf16-vs-f32
+# distance: zamba2's group rounds in bf16 about as far from f32 (5-8 %
+# of max |logit| on an H100 and on the CPU) as 5e-2 × max |logit|, so a
+# fixed bf16-vs-bf16 limit would measure where each side rounds
+REC_ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+REC_CUT_LAYERS = 2
+REC_F32_TOL = 1e-3          # × max |logit|, f32 CPU vs card
+BF16_NOISE_FACTOR = 2.0
+RECURRENT_KERNELS = ("rwkv6", "ssd")
+REC_PATH_KERNELS = RECURRENT_KERNELS + SERVING_KERNELS
 
 
 def log(msg: str) -> None:
@@ -519,30 +541,28 @@ def _attn_case(att, label, kind, args, kw, dtype, bound, library):
                 ok=err <= ATTN_TOL[dtype])
 
 
-def serving_kernel_checks() -> dict:
-    """K4 and K5 against their plain versions at the engine's shapes:
-    (B=1, H=32, KH=4, D=64) prefill and (B=8, H=32, KH=4, D=64, page 16)
-    decode."""
+def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag=""):
+    """K4 and K5 against their plain versions at an engine's shapes:
+    (B=1, H, KH, D) prefill for each flash spec (S, causal, window,
+    dtype), and decode of B = SERVE_TENANTS · SERVE_REQUESTS sequences
+    of 1,025–1,056 tokens (page 16) for each paged mode ("identity" — a
+    dense (B, 2048, KH, D) cache through the identity page table — or
+    "random" distinct pages, with a dtype). ``tag`` ends every label.
+    Returns (flash cases, paged cases)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as att
 
-    rng = np.random.default_rng(21)
-    H, KH, D = 32, 4, 64
+    rng = np.random.default_rng(seed)
 
     def rand(shape, dtype):
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         return x.to(device=DEVICE, dtype=getattr(torch, dtype))
 
     flash = []
-    for S, causal, window, dtype in ((SERVE_PROMPT, True, 0, "bfloat16"),
-                                     (6, True, 0, "bfloat16"),
-                                     (130, True, 0, "bfloat16"),
-                                     (SERVE_PROMPT, True, 256, "bfloat16"),
-                                     (130, False, 0, "bfloat16"),
-                                     (130, True, 0, "float32")):
+    for S, causal, window, dtype in flash_specs:
         q, k, v = (rand(s, dtype) for s in ((1, H, S, D), (1, KH, S, D),
                                             (1, KH, S, D)))
         if window:
@@ -559,7 +579,7 @@ def serving_kernel_checks() -> dict:
                                                       is_causal=causal,
                                                       enable_gqa=True)
         label = (f"S={S} {'causal' if causal else 'non-causal'}"
-                 + (f" window={window}" if window else ""))
+                 + (f" window={window}" if window else "") + tag)
         flash.append(_attn_case(
             att, label, "flash", (q, k, v),
             dict(causal=causal, window=window), dtype,
@@ -574,17 +594,17 @@ def serving_kernel_checks() -> dict:
     valid = (torch.arange(SERVE_SMAX, device=DEVICE)[None, :]
              < lengths[:, None])[:, None, None, :]
     paged = []
-    for mode, dtype in (("identity view of a dense (8, 2048, 4, 64) cache",
-                         "bfloat16"),
-                        ("random distinct pages", "bfloat16"),
-                        ("random distinct pages", "float32")):
+    for mode, dtype in paged_modes:
         q = rand((B, H, D), dtype)
-        if mode.startswith("identity"):
+        if mode == "identity":
+            label = (f"identity view of a dense ({B}, {SERVE_SMAX}, {KH}, "
+                     f"{D}) cache")
             kc, vc = (rand((B, SERVE_SMAX, KH, D), dtype) for _ in range(2))
             kp, page = att.dense_cache_pages(kc)
             vp, _ = att.dense_cache_pages(vc)
             table = att.identity_page_table(B, SERVE_SMAX, page, DEVICE)
         else:
+            label = "random distinct pages"
             P = 4 * B * mp
             kp, vp = (rand((KH, P, page, D), dtype) for _ in range(2))
             table = torch.from_numpy(np.stack([
@@ -600,27 +620,51 @@ def serving_kernel_checks() -> dict:
                 q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
                 attn_mask=valid, enable_gqa=True)
         paged.append(_attn_case(
-            att, mode, "paged", (q, kp, vp, table, lengths), {}, dtype,
+            att, label + tag, "paged", (q, kp, vp, table, lengths), {}, dtype,
             att.paged_attention_bound_ms(lengths_np, KH, H, D, mp, page,
                                          itemsize=q.element_size()), lib))
-    out = {}
-    for name, cases in (("flash_attention", flash),
-                        ("paged_attention", paged)):
+    return flash, paged
+
+
+def merge_cases(out: dict, name: str, cases: list) -> None:
+    """Log each case and fold it into ``out[name]``, the kernel's record:
+    the first case a kernel ever gets is its main one, the rest are its
+    modes; its error is the largest and its verdict all of theirs."""
+    for c in cases:
+        lib = ("" if c["library_ms"] is None
+               else f", library {c['library_ms']:.4f} ms")
+        log(f"[kernel case] {name} {c['case']} {c['dtype']}: max err "
+            f"{c['max_abs_err']:.3g} (tol {c['tolerance']}), kernel "
+            f"{c['ms']:.4f} ms ({c['ms_source']}; events "
+            f"{c['event_ms']:.4f} ms), plain {c['plain_ms']:.4f} ms{lib}, "
+            f"bound {c['bound_ms'] * 1e3:.2f} µs ({c['bound_by']}) "
+            f"{'ok' if c['ok'] else 'FAIL'}")
+    if name not in out:
         main = dict(cases[0])
         main["shape"] = main.pop("case")
-        main["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-        main["ok"] = all(c["ok"] for c in cases)
-        main["modes"] = {c["case"] + f" {c['dtype']}": c for c in cases[1:]}
+        main["modes"] = {}
         out[name] = main
-        for c in cases:
-            log(f"[serving kernel] {name} {c['case']} {c['dtype']}: max err "
-                f"{c['max_abs_err']:.3g} (tol {c['tolerance']:g}), kernel "
-                f"{c['ms']:.4f} ms ({c['ms_source']}; events "
-                f"{c['event_ms']:.4f} ms), plain {c['plain_ms']:.4f} ms, "
-                f"library {c['library_ms']:.4f} ms, bound "
-                f"{c['bound_ms'] * 1e3:.2f} µs ({c['bound_by']}) "
-                f"{'ok' if c['ok'] else 'FAIL'}")
-    return out
+        cases = cases[1:]
+    entry = out[name]
+    entry["modes"].update({f"{c['case']} {c['dtype']}": c for c in cases})
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [c["max_abs_err"] for c in cases])
+    entry["ok"] = entry["ok"] and all(c["ok"] for c in cases)
+
+
+def serving_kernel_checks(out: dict) -> None:
+    """K4 and K5 against their plain versions at tinyllama-1.1b's shapes:
+    (B=1, H=32, KH=4, D=64) prefill and (B=8, H=32, KH=4, D=64, page 16)
+    decode."""
+    flash, paged = attention_cases(
+        21, 32, 4, 64,
+        ((SERVE_PROMPT, True, 0, "bfloat16"), (6, True, 0, "bfloat16"),
+         (130, True, 0, "bfloat16"), (SERVE_PROMPT, True, 256, "bfloat16"),
+         (130, False, 0, "bfloat16"), (130, True, 0, "float32")),
+        (("identity", "bfloat16"), ("random", "bfloat16"),
+         ("random", "float32")))
+    merge_cases(out, "flash_attention", flash)
+    merge_cases(out, "paged_attention", paged)
 
 
 def _timed(fn, sink: list):
@@ -637,10 +681,27 @@ def _timed(fn, sink: list):
     return run
 
 
-def serving_engine(fleet) -> dict:
-    """Full-width tinyllama-1.1b in the multi-tenant engine on the card:
-    every request completes, and K4 / K5 launch once per layer per
-    prefill / decode step."""
+def launches_per_call(cfg) -> tuple[dict, dict]:
+    """The kernel launches one prefill and one decode step of ``cfg``'s
+    model make: K4/K5 once per attention layer (the hybrid family's
+    shared block once per group), K6 once per RWKV-6 layer, K7 once per
+    Mamba-2 layer."""
+    L = cfg.num_layers
+    if cfg.family == "rwkv6":
+        return {"rwkv6": L}, {}
+    if cfg.family == "hybrid":
+        G = L // cfg.attn_every
+        return {"flash_attention": G, "ssd": L}, {"paged_attention": G}
+    return {"flash_attention": L}, {"paged_attention": L}
+
+
+def serving_engine(fleet, archs, kernels) -> tuple:
+    """Full-width tenants of ``archs`` (one each) in the multi-tenant
+    engine on the card, SERVE_REQUESTS requests of SERVE_PROMPT +
+    SERVE_NEW tokens each: every request completes, and each kernel of
+    ``kernels`` launches exactly as often as the tenants' prefills and
+    decode steps call it (:func:`launches_per_call`). Returns (row,
+    engine, tenant names, one prompt per tenant)."""
     import numpy as np
     import torch
 
@@ -649,27 +710,31 @@ def serving_engine(fleet) -> dict:
     from repro_torch.serving import EngineConfig, MultiTenantEngine
     from repro_torch.serving.scheduler import reserved_pages
 
-    cfg = get_config(SERVE_ARCH)
+    cfgs = [get_config(a) for a in archs]
+    n = len(archs)
+    torch.cuda.reset_peak_memory_stats()
     pages = -(-(SERVE_PROMPT + SERVE_NEW) // 16)
     eng = MultiTenantEngine(EngineConfig(
         page_size=16, slot_cap=8, max_seq_len=SERVE_SMAX, policy="none",
-        capacity_slots=SERVE_TENANTS * SERVE_REQUESTS,
-        capacity_pages=SERVE_TENANTS * SERVE_REQUESTS * pages,
+        capacity_slots=n * SERVE_REQUESTS,
+        capacity_pages=n * SERVE_REQUESTS * pages,
         default_units=SERVE_REQUESTS), seed=0, device=DEVICE)
-    prefill_ms, decode_ms = [], []
-    names = [f"tenant{i}" for i in range(SERVE_TENANTS)]
-    for name in names:
+    names = [f"tenant{i}" for i in range(n)]
+    walls = {}
+    for name, cfg in zip(names, cfgs):
         if not eng.add_tenant(TenantSpec(name=name, slo_latency=60.0), cfg):
             raise RuntimeError(f"{name} not admitted")
         rt = eng.tenants[name]
-        rt._prefill = _timed(rt._prefill, prefill_ms)
-        rt._decode = _timed(rt._decode, decode_ms)
+        walls[name] = ([], [])
+        rt._prefill = _timed(rt._prefill, walls[name][0])
+        rt._decode = _timed(rt._decode, walls[name][1])
     rng = np.random.default_rng(5)
-    prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, SERVE_PROMPT)]
-               for _ in range(SERVE_TENANTS * SERVE_REQUESTS)]
-    reqs = [eng.submit(name, prompts[i * SERVE_REQUESTS + j],
-                       max_new_tokens=SERVE_NEW)
-            for i, name in enumerate(names) for j in range(SERVE_REQUESTS)]
+    prompts = {name: [[int(x) for x in rng.integers(1, cfg.vocab_size,
+                                                    SERVE_PROMPT)]
+                      for _ in range(SERVE_REQUESTS)]
+               for name, cfg in zip(names, cfgs)}
+    reqs = [eng.submit(name, prompts[name][j], max_new_tokens=SERVE_NEW)
+            for name in names for j in range(SERVE_REQUESTS)]
     assert reserved_pages(reqs[0], 16) == pages
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -679,85 +744,134 @@ def serving_engine(fleet) -> dict:
     done = sum(r.phase.value == "done" and len(r.generated) == SERVE_NEW
                for r in reqs)
     tokens = sum(len(r.generated) for r in reqs)
-    L = cfg.num_layers
-    counts = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
-    ok = (done == len(reqs)
-          and counts["flash_attention"] == L * len(prefill_ms)
-          and counts["paged_attention"] == L * len(decode_ms))
-    row = {"arch": SERVE_ARCH, "layers": L, "tenants": SERVE_TENANTS,
-           "requests": len(reqs), "completed": done, "prompt": SERVE_PROMPT,
-           "new_tokens": SERVE_NEW, "prefills": len(prefill_ms),
-           "decode_steps": len(decode_ms), "launches": counts,
-           "prefill_ms_per_request": statistics.median(prefill_ms),
-           "decode_ms_per_step": statistics.median(decode_ms),
-           "engine_wall_s": wall, "generated_tokens": tokens,
+    counts = {k: fleet.LAUNCHES[k] for k in kernels}
+    expected = dict.fromkeys(kernels, 0)
+    per_tenant = {}
+    for name, arch, cfg in zip(names, archs, cfgs):
+        pre, dec = walls[name]
+        for calls, per in zip((len(pre), len(dec)), launches_per_call(cfg)):
+            for k, m in per.items():
+                expected[k] += calls * m
+        per_tenant[name] = {
+            "arch": arch, "layers": cfg.num_layers, "prefills": len(pre),
+            "decode_steps": len(dec),
+            "prefill_ms_per_request": statistics.median(pre),
+            "decode_ms_per_step": statistics.median(dec)}
+    ok = done == len(reqs) and counts == expected
+    row = {"archs": list(archs), "requests": len(reqs), "completed": done,
+           "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+           "launches": counts, "expected_launches": expected,
+           "tenants": per_tenant, "engine_wall_s": wall,
+           "generated_tokens": tokens,
            "generated_tokens_per_s": tokens / wall,
            "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"[serving] engine {json.dumps(row)} {'ok' if ok else 'FAIL'}")
+    log(f"[engine] {json.dumps(row)} {'ok' if ok else 'FAIL'}")
     row["ok"] = ok
-    row["cut_check"] = serving_cut_check(eng.tenants[names[0]], cfg,
-                                         reqs[0].req.prompt)
-    row["ok"] &= row["cut_check"]["ok"]
-    return row, eng.tenants[names[0]], reqs[0].req.prompt
+    return row, eng, names, [prompts[name][0] for name in names]
 
 
-def serving_device_time(row, rt, prompt) -> dict:
+def engine_device_time(row, eng, names, prompts) -> dict:
     """Device time of one full-width prefill and of one decode step at
-    the engine's batch (:func:`graph_ms` over the model's own functions,
-    after the run), and from them the share of the engine's wall in
-    which the card had nothing to do (the rest is the host dispatching
-    ~75 torch operations a layer)."""
+    the engine's batch, per tenant (:func:`graph_ms` over the model's
+    own functions, after the run), and from them the share of the
+    engine's wall in which the card had nothing to do (the rest is the
+    host dispatching the models' torch operations one by one)."""
     import torch
 
-    tokens = torch.tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
-    B = rt.cache["k"].shape[1]
-    token = torch.zeros(B, dtype=torch.int64, device=DEVICE)
-    pos = torch.full((B,), SERVE_PROMPT, dtype=torch.int64, device=DEVICE)
-    pre = graph_ms(lambda: rt.model.prefill_fn(rt.params,
-                                               {"tokens": tokens}), n=1)
-    dec = graph_ms(lambda: rt.model.decode_fn(rt.params, rt.cache, token,
-                                              pos), n=1)
-    busy = row["prefills"] * pre + row["decode_steps"] * dec
-    out = {"prefill_device_ms": pre, "decode_step_device_ms": dec,
-           "engine_device_busy_s": busy / 1e3,
-           "idle_share": 1.0 - busy / 1e3 / row["engine_wall_s"]}
-    log(f"[serving] engine device time {json.dumps(out)}")
+    out = {"tenants": {}}
+    busy = 0.0
+    B = eng.cfg.slot_cap
+    for name, prompt in zip(names, prompts):
+        rt = eng.tenants[name]
+        tokens = torch.tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+        token = torch.zeros(B, dtype=torch.int64, device=DEVICE)
+        pos = torch.full((B,), SERVE_PROMPT, dtype=torch.int64,
+                         device=DEVICE)
+        pre = graph_ms(lambda: rt.model.prefill_fn(rt.params,
+                                                   {"tokens": tokens}), n=1)
+        dec = graph_ms(lambda: rt.model.decode_fn(rt.params, rt.cache, token,
+                                                  pos), n=1)
+        t = row["tenants"][name]
+        busy += t["prefills"] * pre + t["decode_steps"] * dec
+        out["tenants"][name] = {"arch": t["arch"], "prefill_device_ms": pre,
+                                "decode_step_device_ms": dec}
+    out["engine_device_busy_s"] = busy / 1e3
+    out["idle_share"] = 1.0 - busy / 1e3 / row["engine_wall_s"]
+    log(f"[engine] device time {json.dumps(out)}")
     return out
 
 
-def serving_cut_check(rt, cfg, prompt) -> dict:
-    """The first SERVE_CUT_LAYERS layers of a tenant's full-width weights
-    through the port on the card and on the CPU: the prefill logits must
-    agree within LOGIT_TOL × max |logit| (bf16 rounds at other places on
-    the two devices)."""
-    import dataclasses as dc
-
+def _cut_logits(rt, keep: int, dtype: str, device: str, tokens):
+    """Prefill logits (on the CPU, f32) of the first ``keep`` layers of
+    a tenant's full-width weights (for the hybrid family, its shared
+    block and the first ``keep / attn_every`` groups), held in
+    ``dtype``, through the port on ``device``, and the seconds it took."""
     import torch
-    from torch import nn
 
     from repro_torch.models import build_model
 
-    cut_cfg = dc.replace(cfg, num_layers=SERVE_CUT_LAYERS)
-    on_gpu = build_model(cut_cfg, device=DEVICE)
-    cut = on_gpu.params
-    cut.tok, cut.ln_f = rt.params.tok, rt.params.ln_f
-    cut.layers = nn.ModuleList(list(rt.params.layers)[:SERVE_CUT_LAYERS])
-    on_cpu = build_model(cut_cfg, device="cpu")
-    on_cpu.params.load_state_dict({k: v.cpu()
-                                   for k, v in cut.state_dict().items()})
-    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
-    gpu_logits, _ = on_gpu.prefill_fn(cut, {"tokens": tokens.to(DEVICE)})
+    cfg = rt.cfg
+    groups = keep // cfg.attn_every if cfg.family == "hybrid" else keep
+    prefix = "blocks.mamba." if cfg.family == "hybrid" else "layers."
+    state = {k: v.to(device) for k, v in rt.params.state_dict().items()
+             if not (k.startswith(prefix)
+                     and int(k[len(prefix):].split(".")[0]) >= groups)}
+    model = build_model(dataclasses.replace(cfg, num_layers=keep,
+                                            dtype=dtype),
+                        device=device)
+    model.params.load_state_dict(state)
     t0 = time.perf_counter()
-    cpu_logits, _ = on_cpu.prefill_fn(on_cpu.params, {"tokens": tokens})
-    cpu_s = time.perf_counter() - t0
-    err = float((gpu_logits.cpu() - cpu_logits).abs().max())
-    scale = float(cpu_logits.abs().max())
-    ok = (bool(torch.isfinite(gpu_logits).all()) and err <= LOGIT_TOL * scale
-          and tuple(gpu_logits.shape) == (1, cfg.padded_vocab))
-    out = {"layers": SERVE_CUT_LAYERS, "prompt": SERVE_CUT_PROMPT,
-           "max_abs_logit_err": err, "max_abs_logit": scale,
-           "tolerance": LOGIT_TOL * scale, "cpu_prefill_s": cpu_s, "ok": ok}
-    log(f"[serving] cut check {json.dumps(out)}")
+    logits, _ = model.prefill_fn(model.params, {"tokens": tokens.to(device)})
+    if device != "cpu":
+        torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    if not (bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (1, cfg.padded_vocab)):
+        raise RuntimeError(f"{cfg.name} cut: logits of shape "
+                           f"{tuple(logits.shape)} or not finite")
+    return logits.float().cpu(), s
+
+
+def cut_check(rt, prompt, keep: int, dtype: str, tol: float) -> dict:
+    """A cut of ``keep`` layers (:func:`_cut_logits`) held in ``dtype``
+    on the card and on the CPU: the prefill logits must agree within
+    ``tol`` × max |logit|."""
+    import torch
+
+    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
+    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
+    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", tokens)
+    err = float((gpu - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    out = {"arch": rt.cfg.name, "layers": keep, "dtype": dtype,
+           "prompt": SERVE_CUT_PROMPT, "max_abs_logit_err": err,
+           "max_abs_logit": scale, "tolerance": tol * scale,
+           "cpu_prefill_s": cpu_s, "ok": err <= tol * scale}
+    log(f"[cut check] {json.dumps(out)}")
+    return out
+
+
+def served_dtype_cut_check(rt, prompt, keep: int) -> dict:
+    """The same cut in the tenant's served dtype (bf16) on the card and
+    on the CPU, each against the CPU's f32 logits: the card may stray
+    from f32 at most BF16_NOISE_FACTOR times as far as the CPU does."""
+    import torch
+
+    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
+    dtype = rt.cfg.dtype
+    ref, _ = _cut_logits(rt, keep, "float32", "cpu", tokens)
+    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
+    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", tokens)
+    card_err = float((gpu - ref).abs().max())
+    cpu_err = float((cpu - ref).abs().max())
+    tol = BF16_NOISE_FACTOR * cpu_err
+    out = {"arch": rt.cfg.name, "layers": keep, "dtype": dtype,
+           "against": "float32 on the CPU", "prompt": SERVE_CUT_PROMPT,
+           "card_max_abs_logit_err": card_err,
+           "cpu_max_abs_logit_err": cpu_err,
+           "max_abs_logit": float(ref.abs().max()), "tolerance": tol,
+           "cpu_prefill_s": cpu_s, "ok": card_err <= tol}
+    log(f"[cut check] {json.dumps(out)}")
     return out
 
 
@@ -822,7 +936,146 @@ def serving_scenarios(fleet) -> dict:
     return {"ok": ok, "rows": rows}
 
 
+# ---------------------------------------------------------------- phase 6
+def _recurrent_case(label, dtype, kernel, plain, args, kw, bound, *,
+                    long_run: bool) -> dict:
+    """One K6/K7 case: the kernel against its plain version run in f64
+    on the same inputs (the oracle — two f32 sums in other orders can
+    differ by more than the tolerance), and the kernel's and the plain
+    version's (in the inputs' dtype) device times by graph replay.
+    Outputs: the reference's allclose tolerance (2e-2 bf16, 2e-5 f32),
+    or over ``long_run``s in f32, 1e-4 × max |o|; final states 1e-3."""
+    import torch
+
+    got, s = kernel(*args, **kw)
+    want, want_s = plain(*(a.double() for a in args),
+                         **{k: v.double() if torch.is_tensor(v) else v
+                            for k, v in kw.items()})
+    torch.cuda.synchronize()
+    diff = (got.double() - want).abs()
+    if long_run and dtype == "float32":
+        rtol, atol = 0.0, 1e-4 * float(want.abs().max())
+        tol = f"1e-4 x max|o| = {atol:.3g}"
+    else:
+        rtol = atol = ATTN_TOL[dtype]
+        tol = f"rtol=atol={atol:g}"
+    used = float((diff / (atol + rtol * want.abs())).max())
+    s_err = float((s.double() - want_s).abs().max())
+    s_used = float(((s.double() - want_s).abs()
+                    / (1e-3 + 1e-3 * want_s.abs())).max())
+    return dict(case=label, dtype=dtype, max_abs_err=float(diff.max()),
+                tolerance=tol, allowance_used=used,
+                state_max_abs_err=s_err, state_allowance_used=s_used,
+                ms=graph_ms(lambda: kernel(*args, **kw)),
+                event_ms=cuda_ms(lambda: kernel(*args, **kw)),
+                ms_source="cuda graph",
+                plain_ms=graph_ms(lambda: plain(*args, **kw), n=1),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                ok=used <= 1.0 and s_used <= 1.0)
+
+
+def recurrent_kernel_checks(out: dict) -> None:
+    """K6 and K7 against their plain versions — at the full-width
+    prefill shapes of rwkv6-3b (1, 40, 1024, 64) and zamba2-2.7b
+    (1, 80, 1024, 64, N = 64) in the model's strided layouts, at the
+    reference's sweep shapes (tests/test_kernels.py), each with and
+    without an initial state — and K4/K5 at zamba2's head dim 80."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rwkv6 as k6
+    from repro_torch.kernels import ssd as k7
+
+    rng = np.random.default_rng(23)
+
+    def rand(shape, dtype=torch.float32):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.to(device=DEVICE, dtype=dtype)
+
+    # (shape, dtypes, initial state, full width in the model's layout)
+    cases = []
+    for (B, H, T, K), dtypes, init, full in (
+            ((1, 40, SERVE_PROMPT, 64), ("bfloat16", "float32"), False, True),
+            ((1, 40, SERVE_PROMPT, 64), ("bfloat16",), True, True),
+            ((2, 2, 64, 16), ("bfloat16", "float32"), False, False),
+            ((1, 4, 96, 32), ("bfloat16", "float32"), False, False),
+            ((2, 1, 50, 16), ("bfloat16", "float32"), True, False)):
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            # full width: (B, T, H, K) projections seen as (B, H, T, K)
+            shape = (B, T, H, K) if full else (B, H, T, K)
+            r, k, v = (rand(shape, dt) for _ in range(3))
+            w = torch.sigmoid(rand(shape))
+            if full:
+                r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
+            kw = {"init_state": rand((B, H, K, K))} if init else {}
+            label = (f"({B}, {H}, {T}, {K})" + (" model layout" if full
+                                                 else "")
+                     + (" initial state" if init else ""))
+            cases.append(_recurrent_case(
+                label, dtype, k6.rwkv6_forward, k6.rwkv6_forward_plain,
+                (r, k, v, w, rand((H, K))), kw,
+                k6.rwkv6_bound_ms(B, H, T, K, itemsize=r.element_size(),
+                                  init_state=init), long_run=full))
+    merge_cases(out, "rwkv6", cases)
+
+    cases = []
+    for (B, H, T, P, N, chunk), dtypes, init, full in (
+            ((1, 80, SERVE_PROMPT, 64, 64, 128), ("bfloat16", "float32"),
+             False, True),
+            ((1, 80, SERVE_PROMPT, 64, 64, 128), ("bfloat16",), True, True),
+            ((2, 2, 128, 16, 16, 32), ("bfloat16", "float32"), False, False),
+            ((1, 4, 64, 32, 32, 64), ("bfloat16", "float32"), False, False),
+            ((2, 1, 96, 16, 8, 32), ("bfloat16", "float32"), True, False)):
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            a_log = rand((H,)) * 0.5
+            dtv = F.softplus(rand((B, T, H))).transpose(1, 2)
+            if full:
+                # the model's conv output: x, B and C are column slices
+                xbc = rand((B, T, H * P + 2 * N), dt)
+                x = xbc[..., :H * P].reshape(B, T, H, P).transpose(1, 2)
+                Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+            else:       # the sweep: B/C in f32 beside x
+                x = rand((B, H, T, P), dt)
+                Bm, Cm = rand((B, T, N)), rand((B, T, N))
+            kw = {"chunk": chunk}
+            if init:
+                kw["init_state"] = rand((B, H, P, N))
+            label = (f"({B}, {H}, {T}, {P}) N={N}" + (" model layout"
+                                                       if full else "")
+                     + (" initial state" if init else ""))
+            cases.append(_recurrent_case(
+                label, dtype, k7.ssd_forward, k7.ssd_forward_plain,
+                (x, dtv, a_log, Bm, Cm), kw,
+                k7.ssd_bound_ms(B, H, T, P, N, itemsize=x.element_size(),
+                                bc_itemsize=Bm.element_size(),
+                                init_state=init), long_run=full))
+    merge_cases(out, "ssd", cases)
+
+    # zamba2-2.7b's shared attention: 32 heads of 80, no grouping
+    flash, paged = attention_cases(
+        22, 32, 32, 80,
+        ((SERVE_PROMPT, True, 0, "bfloat16"),
+         (SERVE_PROMPT, True, 0, "float32")),
+        (("identity", "bfloat16"), ("identity", "float32")), tag=" D=80")
+    merge_cases(out, "flash_attention", flash)
+    merge_cases(out, "paged_attention", paged)
+
+
 # ------------------------------------------------------------------- main
+def _path_launches(path: str, counts: dict, launches: dict) -> list:
+    """Record a path's launch counts (set to 0 just before its run, read
+    just after) under ``launches[kernel][path]`` and return the
+    failures: each kernel of the path must have launched."""
+    log(f"[launches] {path} path: {json.dumps(counts)}")
+    for k, n in counts.items():
+        launches.setdefault(k, {})[path] = n
+    return [f"kernel {k} never launched on the {path} path"
+            for k, n in counts.items() if n == 0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -858,41 +1111,72 @@ def main(argv=None) -> int:
         if "mega" in phases and not phase_mega()["ok"]:
             failures.append("mega-scale federations")
         torch.cuda.synchronize()
-        launches.update({k: fleet.LAUNCHES[k] for k in FLEET_KERNELS})
-        log(f"[launches] simulator path: {json.dumps(launches)}")
-        failures += [f"kernel {k} never launched on the simulator path"
-                     for k in FLEET_KERNELS if launches[k] == 0]
+        failures += _path_launches(
+            "simulator", {k: fleet.LAUNCHES[k] for k in FLEET_KERNELS},
+            launches)
     if "serving" in phases:
-        kern.update(serving_kernel_checks())
+        serving_kernel_checks(kern)
         failures += [f"kernel {k}" for k in SERVING_KERNELS
                      if not kern[k]["ok"]]
         fleet.reset_launches()
-        row, rt, prompt = serving_engine(fleet)
+        row, eng, names, prompts = serving_engine(
+            fleet, (SERVE_ARCH,) * SERVE_TENANTS, SERVING_KERNELS)
         if not row["ok"]:
             failures.append("full-width serving engine")
+        failures += _path_launches("serving", row["launches"], launches)
+        rt = eng.tenants[names[0]]
+        if not cut_check(rt, prompts[0], SERVE_CUT_LAYERS, rt.cfg.dtype,
+                         LOGIT_TOL)["ok"]:
+            failures.append("serving cut check")
         if not serving_scenarios(fleet)["ok"]:
             failures.append("serving scenarios on the card")
-        torch.cuda.synchronize()
-        served = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
-        launches.update(served)
-        log(f"[launches] serving path: {json.dumps(served)}")
-        failures += [f"kernel {k} never launched on the serving path"
-                     for k in SERVING_KERNELS if served[k] == 0]
-        serving_device_time(row, rt, prompt)
+        engine_device_time(row, eng, names, prompts)
+        del eng, rt
+        gc.collect()    # the engine's controller refers back to it
+    if "recurrent" in phases:
+        recurrent_kernel_checks(kern)
+        failures += [f"kernel {k}" for k in RECURRENT_KERNELS + SERVING_KERNELS
+                     if not kern[k]["ok"]]
+        fleet.reset_launches()
+        row, eng, names, prompts = serving_engine(fleet, REC_ARCHS,
+                                                  REC_PATH_KERNELS)
+        if not row["ok"]:
+            failures.append("full-width recurrent serving engine")
+        failures += _path_launches("recurrent", row["launches"], launches)
+        for name, prompt in zip(names, prompts):
+            rt = eng.tenants[name]
+            keep = (rt.cfg.attn_every if rt.cfg.family == "hybrid"
+                    else REC_CUT_LAYERS)
+            if not cut_check(rt, prompt, keep, "float32",
+                             REC_F32_TOL)["ok"]:
+                failures.append(f"{rt.cfg.name} f32 cut check")
+            if not served_dtype_cut_check(rt, prompt, keep)["ok"]:
+                failures.append(f"{rt.cfg.name} {rt.cfg.dtype} cut check")
+        engine_device_time(row, eng, names, prompts)
 
     record = []
-    sources = {name: f"src/repro_torch/csrc/{name}.cu"
-               for name in FLEET_KERNELS + SERVING_KERNELS}
+    sources = {name: f"src/repro_torch/csrc/{name}.cu" for name in
+               FLEET_KERNELS + SERVING_KERNELS + RECURRENT_KERNELS}
     replaces = {
         "latency_scale": "src/repro/sim/engines/jax_backend.py:151",
         "row_draw": "src/repro/sim/engines/jax_backend.py:124",
         "poisson": "src/repro/sim/engines/jax_backend.py:145",
         "flash_attention": "src/repro/kernels/flash_attention.py:29",
-        "paged_attention": "src/repro/kernels/paged_attention.py:34"}
+        "paged_attention": "src/repro/kernels/paged_attention.py:34",
+        "rwkv6": "src/repro/kernels/rwkv6.py:25",
+        "ssd": "src/repro/kernels/ssd.py:23"}
+    # a kernel's ``launches`` is the count on the path of the slice that
+    # ported it, where that path ran; ``launches_by_path`` has each path
+    home = dict.fromkeys(FLEET_KERNELS, "simulator")
+    home.update(dict.fromkeys(SERVING_KERNELS, "serving"))
+    home.update(dict.fromkeys(RECURRENT_KERNELS, "recurrent"))
     for name, r in kern.items():
+        by_path = launches.get(name, {})
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
-                 "launches": launches.get(name, 0),
+                 "launches": by_path.get(home[name],
+                                         next(iter(by_path.values()), 0)),
+                 "launches_by_path": by_path,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "event_ms": r["event_ms"], "ms_source": r["ms_source"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -904,7 +1188,8 @@ def main(argv=None) -> int:
                 for m, v in r["modes"].items()}
         record.append(entry)
     if failures:
-        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+        print("chip_smoke FAILED: " + "; ".join(dict.fromkeys(failures)),
+              file=sys.stderr)
         return 1
     print(json.dumps({"kernels": record}))
     print(smi_line())

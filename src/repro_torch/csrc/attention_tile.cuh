@@ -13,8 +13,7 @@
 // all masked; such a row's partial sums are wiped by corr = 0 as soon
 // as it meets its first valid key, exactly as in the Pallas kernels.
 #pragma once
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "elem.cuh"
 
 namespace attn {
 
@@ -22,14 +21,8 @@ constexpr float NEG_INF = -1e30f;
 constexpr int TILE = 32;   // keys per tile: one per lane in the score pass
 constexpr int ROWS = 8;    // query rows one warp carries
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float x, float* o) { *o = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* o) {
-    *o = __float2bfloat16(x);
-}
+using elem::store;
+using elem::to_f32;
 
 // 16-byte loads of N consecutive elements, widened to f32.
 template <typename T>

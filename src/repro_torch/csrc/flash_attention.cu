@@ -136,6 +136,8 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
                                       causal, window, scale, stream);
         case 64: return launch<T, 64>(q, k, v, o, B, H, KH, Sq, Sk, st,
                                       causal, window, scale, stream);
+        case 80: return launch<T, 80>(q, k, v, o, B, H, KH, Sq, Sk, st,
+                                      causal, window, scale, stream);
         case 128: return launch<T, 128>(q, k, v, o, B, H, KH, Sq, Sk, st,
                                         causal, window, scale, stream);
     }

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel paged_attention._kernel / paged_attention
 // of src/repro/kernels/paged_attention.py. The TPU version walks one
 // sequence's pages in order (grid (B, KH, max_pages)) and skips pages
-// at or past ceil(len / page). Here one CTA of W warps (8 for D <= 64,
+// at or past ceil(len / page). Here one CTA of W warps (8 for D < 128,
 // 4 at D = 128) owns a (sequence, kv head) and the G = H / KH query rows
 // that share it (up to 8 per CTA; more rows take more CTAs along grid
 // z). The tokens [0, len) are cut into 32-token tiles; warp w takes
@@ -27,10 +27,10 @@
 
 namespace {
 
-// warps per CTA: 8 while the per-warp tiles fit shared memory (D <= 64),
-// else 4
+// warps per CTA: 8 while the per-warp tiles fit the 227 KiB of opt-in
+// shared memory (D = 80: 195 KiB), else 4 (D = 128: 154 KiB)
 template <int D>
-__host__ __device__ constexpr int warps() { return D <= 64 ? 8 : 4; }
+__host__ __device__ constexpr int warps() { return D < 128 ? 8 : 4; }
 
 template <int D>
 constexpr int smem_floats() {
@@ -39,6 +39,9 @@ constexpr int smem_floats() {
                            + attn::TILE * attn::ROWS)
            + warps<D>() * attn::ROWS * (D + 2);
 }
+static_assert(smem_floats<80>() * 4 <= 232448 &&
+              smem_floats<128>() * 4 <= 232448,
+              "per-CTA shared memory above the H100's opt-in limit");
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(256)
@@ -168,6 +171,9 @@ int dispatch(int D, const void* q, const void* kp, const void* vp,
                                             H, KH, mp, page, st, scale,
                                             stream);
         case 64: return launch<TQ, TKV, 64>(q, kp, vp, table, lengths, o, B,
+                                            H, KH, mp, page, st, scale,
+                                            stream);
+        case 80: return launch<TQ, TKV, 80>(q, kp, vp, table, lengths, o, B,
                                             H, KH, mp, page, st, scale,
                                             stream);
         case 128: return launch<TQ, TKV, 128>(q, kp, vp, table, lengths, o,

@@ -41,7 +41,7 @@ import torch
 from repro_torch.kernels import fleet
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: H100 SXM peak rates (NVIDIA's data sheet): dense bf16 on the tensor
 #: cores, and float32 outside them
 BF16_FLOPS_PER_S = 989e12
@@ -78,18 +78,18 @@ def _check_head_dim(D: int) -> None:
                          f"kernels are compiled for those only")
 
 
-def _check_vector_rows(*tensors) -> None:
-    """The kernels stage K/V rows with 16-byte loads: each row must start
-    16-byte aligned (base pointer and leading strides) and the last
+def _check_vector_rows(*tensors, what: str = "attention kernels") -> None:
+    """The kernels stage rows (here K/V) with 16-byte loads: each row must
+    start 16-byte aligned (base pointer and leading strides) and the last
     dimension must be contiguous."""
     for t in tensors:
         vec = 16 // t.element_size()
         if (t.stride(-1) != 1 or t.data_ptr() % 16
                 or any(s % vec for s in t.stride()[:-1])):
             raise ValueError(
-                f"attention kernels: a K/V tensor with strides {t.stride()} "
-                f"and address {t.data_ptr():#x} has rows that are not "
-                f"16-byte aligned or not contiguous")
+                f"{what}: a tensor with strides {t.stride()} and address "
+                f"{t.data_ptr():#x} has rows that are not 16-byte aligned "
+                f"or not contiguous")
 
 
 # ------------------------------------------------------- K4 flash attention

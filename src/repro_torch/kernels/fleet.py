@@ -24,7 +24,8 @@ through the kernels.
 
 The build and launch machinery here (nvcc at first use, ctypes, the
 launch counts) also serves the attention kernels K4 and K5 of
-:mod:`repro_torch.kernels.attention`.
+:mod:`repro_torch.kernels.attention` and the recurrent kernels K6
+(:mod:`repro_torch.kernels.rwkv6`) and K7 (:mod:`repro_torch.kernels.ssd`).
 
 Random bits: ``threefry2x32`` with 20 rounds, JAX's partitionable
 scheme (key ``(k0, k1)``, counter ``(hi, lo)``, bits ``x0 ^ x1``). The
@@ -47,7 +48,8 @@ import numpy as np
 import torch
 
 LAUNCHES = {"latency_scale": 0, "row_draw": 0, "poisson": 0,
-            "flash_attention": 0, "paged_attention": 0}
+            "flash_attention": 0, "paged_attention": 0, "rwkv6": 0,
+            "ssd": 0}
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -97,7 +99,7 @@ def check_device(device) -> torch.device:
 # ---------------------------------------------------------------- build
 _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("latency_scale", "row_draw", "poisson", "flash_attention",
-            "paged_attention")
+            "paged_attention", "rwkv6", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -114,10 +116,15 @@ _ARGTYPES = {
                             _INT, _INT, _P, _INT, _INT, ctypes.c_float, _P],
     "paged_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _INT, _INT,
                             _INT, _INT, _INT, _P, ctypes.c_float, _P],
+    "rwkv6_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
+                  _INT, _P, _P],
+    "ssd_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
+                _INT, _INT, _P, _P],
 }
 _ENTRY = {"latency_scale": "latency_scale_f32", "row_draw": "row_draw_f32",
           "poisson": "poisson_i32", "flash_attention": "flash_attention_fwd",
-          "paged_attention": "paged_attention_fwd"}
+          "paged_attention": "paged_attention_fwd", "rwkv6": "rwkv6_fwd",
+          "ssd": "ssd_fwd"}
 
 
 def build_dir() -> Path:

@@ -4,8 +4,9 @@
       --tenants chat:tinyllama-1.1b code:granite-8b --policy sdps \
       --requests 24 [--device cpu]
 
-Models are the reduced configs; the dense decoder family is ported so
-far (others raise). ``--device`` defaults to ``cuda``.
+Models are the reduced configs of the ported families: the dense
+decoders, RWKV-6 (``rwkv6-3b``) and hybrid Mamba-2 (``zamba2-2.7b``);
+the others raise. ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 

@@ -6,12 +6,15 @@ Two worlds, as in the JAX package:
     (the reference rebuilds them functionally);
   * a paged KV pool — device memory carved into fixed-size pages;
     tenants own page quotas that DYVERSE vertically scales at runtime.
-The dense branch serves the dense decoder; the other families' cache
-layouts come with their models.
+The dense branch serves the dense decoder; the RWKV-6 and hybrid
+families keep their fixed-size states beside it. :func:`cache_specs`
+is the one place that knows each family's cache layout: its shapes,
+dtypes, and which axis holds the batch and which the sequence.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -46,18 +49,58 @@ def write_slot(cache_layer, k_new, v_new, slot):
     return k_cache, v_cache
 
 
+class TensorSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+    batch_axis: int
+    seq_axis: int | None = None     # None: a fixed-size state
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """{name: TensorSpec} of the decode caches of ``cfg``'s family for
+    ``batch`` slots of ``max_len`` tokens: the dense k/v (L, B, S, KH,
+    hd); the RWKV-6 token-shift and wkv states (L, B, ...); the hybrid
+    family's shared-attention k/v (G, B, S, KH, hd) and its conv and SSM
+    states (G, attn_every, B, ...)."""
+    if cfg.family == "dense":
+        shape = dense_cache_shape(cfg, batch, max_len)
+        return {"k": TensorSpec(shape, torch.bfloat16, 1, 2),
+                "v": TensorSpec(shape, torch.bfloat16, 1, 2)}
+    if cfg.family == "rwkv6":
+        L, D = cfg.num_layers, cfg.d_model
+        H, K = cfg.rwkv_heads, cfg.rwkv_head_size
+        return {"att_x": TensorSpec((L, batch, D), torch.bfloat16, 1),
+                "att_s": TensorSpec((L, batch, H, K, K), torch.float32, 1),
+                "ffn_x": TensorSpec((L, batch, D), torch.bfloat16, 1)}
+    if cfg.family == "hybrid":
+        G, Kn = cfg.num_layers // cfg.attn_every, cfg.attn_every
+        N = cfg.ssm_state
+        kv = (G, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {
+            "attn_k": TensorSpec(kv, torch.bfloat16, 1, 2),
+            "attn_v": TensorSpec(kv, torch.bfloat16, 1, 2),
+            "conv": TensorSpec((G, Kn, batch, cfg.conv_width - 1,
+                                cfg.d_inner + 2 * N), torch.bfloat16, 2),
+            "ssm": TensorSpec((G, Kn, batch, cfg.ssm_heads,
+                               cfg.ssm_head_dim, N), torch.float32, 2),
+        }
+    raise NotImplementedError(
+        f"{cfg.family} caches are ported later in slice 3")
+
+
 def grow_cache(cfg: ModelConfig, cache, max_len: int):
-    """Pad a prefill-produced cache along its sequence axis to max_len so
-    decode steps have free slots."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family} caches: slice 3")
-    target = min(max_len, cfg.window) if cfg.attention == "swa" else max_len
-    pad = target - cache["k"].shape[2]
-    if pad > 0:
-        pw = (0, 0, 0, 0, 0, pad)     # (hd, KH, S) from the last dim back
-        cache = dict(cache, k=torch.nn.functional.pad(cache["k"], pw),
-                     v=torch.nn.functional.pad(cache["v"], pw))
-    return cache
+    """Pad a prefill-produced cache along its sequence axes to the
+    decode caches' length (:func:`cache_specs`) so decode steps have
+    free slots; fixed-size states stay as they are."""
+    out = dict(cache)
+    for k, spec in cache_specs(cfg, 1, max_len).items():
+        if spec.seq_axis is None:
+            continue
+        pad = spec.shape[spec.seq_axis] - cache[k].shape[spec.seq_axis]
+        if pad > 0:
+            pw = [0, 0] * (cache[k].dim() - 1 - spec.seq_axis) + [0, pad]
+            out[k] = torch.nn.functional.pad(cache[k], pw)
+    return out
 
 
 # ---------------------------------------------------------------- paged

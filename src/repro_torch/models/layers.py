@@ -37,6 +37,16 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
     return frozen((w * scale).to(device=device, dtype=dtype))
 
 
+def normal_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
+                device) -> nn.Parameter:
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return frozen((w * scale).to(device=device, dtype=dtype))
+
+
+def const_init(value: float, shape: tuple, dtype, device) -> nn.Parameter:
+    return frozen(torch.full(shape, value, dtype=dtype, device=device))
+
+
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
                device) -> nn.Parameter:
     return dense_init(gen, vocab, dim, dtype, device, scale=0.02)
@@ -58,6 +68,16 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
+def group_norm_heads(x, scale, bias, eps: float = 64e-5):
+    """Per-head LayerNorm used by RWKV-6 (x: ..., H, K), in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dt)
 
 
 class Norm(nn.Module):

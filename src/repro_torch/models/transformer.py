@@ -1,11 +1,13 @@
-"""The dense decoder backbone: blocks, the prefill stack and the
-one-token decode step.
+"""Backbones: the dense decoder, the RWKV-6 stack and the hybrid
+Mamba-2 + shared-attention stack (zamba2), each with its prefill stack
+and its one-token decode step.
 
 Layers are an ``nn.ModuleList`` walked by a Python loop (the reference
 scans stacked params; its ``remat`` and ``scan_layers`` knobs are for
 training and compile size, and have no counterpart in this inference
-path). The MoE FFN, cross attention and the other families' stacks come
-with their models.
+path). Decode steps update their caches in place (the reference
+returns new ones). The MoE FFN and cross attention come with their
+families.
 """
 from __future__ import annotations
 
@@ -14,18 +16,22 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.kvcache import write_slot
-from repro_torch.models.layers import GLUMLP, Norm, apply_norm, cdtype, glu_mlp
+from repro_torch.models.layers import (GLUMLP, Norm, apply_norm, cdtype,
+                                       dense_init, glu_mlp)
 
 
 class Block(nn.Module):
-    """One dense decoder block's weights (the reference's
-    ``block_params``)."""
+    """One decoder block's weights (the reference's ``block_params``):
+    the dense family's layers and the hybrid family's shared block."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"{cfg.family} blocks: slice 3")
+        if cfg.family not in ("dense", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.family} blocks are ported later in slice 3")
         self.ln1 = Norm(cfg, device)
         self.attn = attn.Attention(cfg, gen, device)
         self.ln2 = Norm(cfg, device)
@@ -79,4 +85,144 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
         o = attn.decode_attention(q, kc, vc, cache_len, window=window)
         x = x + o.reshape(B, 1, cfg.q_dim) @ p.attn.wo.to(dt)
         x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
+    return x, cache
+
+
+# ------------------------------------------------------------ rwkv6
+class RwkvBlock(nn.Module):
+    """The reference's ``rwkv_block_params``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, device)
+        self.att = rwkv.TimeMix(cfg, gen, device)
+        self.ln2 = Norm(cfg, device)
+        self.ffn = rwkv.ChannelMix(cfg, gen, device)
+
+
+def rwkv_stack(layers: nn.ModuleList, x, cfg: ModelConfig, state=None,
+               collect_state=False):
+    """All layers in order. state: {"att_x", "att_s", "ffn_x"} stacked
+    over layers, or None (zeros). Returns (x, the final states stacked
+    the same way, or None)."""
+    outs = {"att_x": [], "att_s": [], "ffn_x": []}
+    for i, p in enumerate(layers):
+        st_a = None if state is None else (state["att_x"][i],
+                                          state["att_s"][i])
+        a, (ax, as_) = rwkv.time_mix(p.att, apply_norm(p.ln1, x, cfg), cfg,
+                                     state=st_a)
+        x = x + a
+        f, fx = rwkv.channel_mix(p.ffn, apply_norm(p.ln2, x, cfg), cfg,
+                                 state=None if state is None
+                                 else state["ffn_x"][i])
+        x = x + f
+        if collect_state:
+            for k, t in (("att_x", ax), ("att_s", as_), ("ffn_x", fx)):
+                outs[k].append(t)
+    states = ({k: torch.stack(v) for k, v in outs.items()}
+              if collect_state else None)
+    return x, states
+
+
+def rwkv_decode_step(layers: nn.ModuleList, x, cfg: ModelConfig, state):
+    """x (B,D); state {"att_x", "att_s", "ffn_x"} stacked per layer,
+    written in place (cast to each cache's dtype). Returns (x, state)."""
+    for i, p in enumerate(layers):
+        a, (ax, as_) = rwkv.time_mix_step(
+            p.att, apply_norm(p.ln1, x, cfg), cfg,
+            (state["att_x"][i], state["att_s"][i]))
+        x = x + a
+        f, fx = rwkv.channel_mix_step(p.ffn, apply_norm(p.ln2, x, cfg), cfg,
+                                      state["ffn_x"][i])
+        x = x + f
+        state["att_x"][i] = ax
+        state["att_s"][i] = as_
+        state["ffn_x"][i] = fx
+    return x, state
+
+
+# ------------------------------------------------------------ hybrid (zamba2)
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        self.ln = Norm(cfg, device)
+        self.mamba = m2.Mamba2(cfg, gen, device)
+
+
+class HybridBlocks(nn.Module):
+    """The reference's ``hybrid_params``: G groups, each one application
+    of the ONE shared attention block (with ``fuse``, 2D → D) followed by
+    ``attn_every`` (norm, Mamba-2) layers."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"num_layers {cfg.num_layers} is not a "
+                             f"multiple of attn_every {cfg.attn_every}")
+        G = cfg.num_layers // cfg.attn_every
+        self.shared = Block(cfg, gen, device)
+        self.shared.fuse = dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                      cdtype(cfg), device)
+        self.mamba = nn.ModuleList(
+            nn.ModuleList(MambaLayer(cfg, gen, device)
+                          for _ in range(cfg.attn_every))
+            for _ in range(G))
+
+
+def _shared_block(shared: Block, x, x0, cfg: ModelConfig, positions):
+    fused = torch.cat([x, x0], dim=-1) @ shared.fuse.to(cdtype(cfg))
+    y, (k, v) = block_fwd(shared, fused, cfg, positions)
+    return x + y, (k, v)
+
+
+def hybrid_stack(blocks: HybridBlocks, x, cfg: ModelConfig, positions,
+                 collect=False):
+    """Returns (x, {"attn_k", "attn_v": (G,B,S,KH,hd), "conv":
+    (G,K,B,W-1,C), "ssm": (G,K,B,H,P,N)} or None)."""
+    x0 = x
+    outs = {"attn_k": [], "attn_v": [], "conv": [], "ssm": []}
+    for group in blocks.mamba:
+        x, (k, v) = _shared_block(blocks.shared, x, x0, cfg, positions)
+        convs, ssms = [], []
+        for pm in group:
+            y, (cs, ss) = m2.mamba2_block(pm.mamba, apply_norm(pm.ln, x, cfg),
+                                          cfg)
+            x = x + y
+            convs.append(cs)
+            ssms.append(ss)
+        if collect:
+            for key, t in (("attn_k", k), ("attn_v", v),
+                           ("conv", torch.stack(convs)),
+                           ("ssm", torch.stack(ssms))):
+                outs[key].append(t)
+    sts = {k: torch.stack(v) for k, v in outs.items()} if collect else None
+    return x, sts
+
+
+def hybrid_decode_step(blocks: HybridBlocks, x, cfg: ModelConfig, cache,
+                       pos):
+    """x (B,1,D); cache per group: attn k/v (G,B,S,KH,hd), conv
+    (G,K,B,W-1,C), ssm (G,K,B,H,P,N), all written in place; pos (B,) —
+    the new token's index. Returns (x, cache)."""
+    x0 = x
+    dt = cdtype(cfg)
+    B = x.shape[0]
+    shared = blocks.shared
+    for g, group in enumerate(blocks.mamba):
+        kc, vc = cache["attn_k"][g], cache["attn_v"][g]
+        fused = torch.cat([x, x0], dim=-1) @ shared.fuse.to(dt)
+        hh = apply_norm(shared.ln1, fused, cfg)
+        q, k, v = attn.qkv_proj(shared.attn, hh, cfg, positions=pos[:, None])
+        write_slot((kc, vc), k, v, pos)
+        o = attn.decode_attention(q, kc, vc, pos + 1)
+        y = fused + o.reshape(B, 1, cfg.q_dim) @ shared.attn.wo.to(dt)
+        f = _ffn(shared, apply_norm(shared.ln2, y, cfg), cfg)
+        x = x + (y + f)
+        for m, pm in enumerate(group):
+            y2, (cs, ss) = m2.mamba2_step(
+                pm.mamba, apply_norm(pm.ln, x[:, 0], cfg), cfg,
+                (cache["conv"][g, m], cache["ssm"][g, m]))
+            x = x + y2[:, None]
+            cache["conv"][g, m] = cs
+            cache["ssm"][g, m] = ss
     return x, cache

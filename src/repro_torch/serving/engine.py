@@ -23,11 +23,14 @@ default, or a :class:`~repro_torch.serving.spec.VirtualClock` for
 deterministic simulation-grade runs (the serving federation's
 determinism contract).
 
-Device: every tenant's weights and its (L, slot_cap, Smax, KH, hd) KV
-cache live on the engine's ``device`` — ``"cuda"`` unless the caller
-asks for ``"cpu"``. On the card, prefill runs through the flash kernel
-K4 and decode through the paged kernel K5
-(:mod:`repro_torch.kernels.attention`); the cache is updated in place.
+Device: every tenant's weights and its caches (the dense family's
+(L, slot_cap, Smax, KH, hd) KV cache, RWKV-6's per-layer states, the
+hybrid family's shared-attention KV and Mamba-2 states) live on the
+engine's ``device`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
+On the card, attention prefill runs through the flash kernel K4 and
+decode through the paged kernel K5
+(:mod:`repro_torch.kernels.attention`), the RWKV-6 recurrence through
+K6 and the SSD scan through K7; the caches are updated in place.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.core import (DyverseController, NodeCapacity, Quota,
                               ResourceUnit, TenantSpec)
 from repro_torch.kernels.fleet import check_device
 from repro_torch.models import build_model
+from repro_torch.models.kvcache import cache_specs
 from repro_torch.serving.request import Phase, Request, RequestState
 from repro_torch.serving.scheduler import QuotaScheduler
 
@@ -283,14 +287,19 @@ class MultiTenantEngine:
 
 def _insert_cache(cache, cache1, slot: int, cfg: ModelConfig, max_len: int):
     """Insert a single-request prefill cache into the batch caches at
-    ``slot``, in place: the prefill's S positions, cast to the cache's
-    dtype, and zeros past them (the reference's zero padding). Only the
-    dense (L, B, S, KH, hd) layout is ported so far."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family} caches: slice 3")
-    for k in cache:
-        full, one = cache[k], cache1[k]
-        S = one.shape[2]
-        full[:, slot, :S] = one[:, 0].to(full.dtype)
-        full[:, slot, S:] = 0
+    ``slot``, in place, cast to each cache's dtype, along the batch axis
+    of its spec (:func:`~repro_torch.models.kvcache.cache_specs`): a
+    cache with a sequence axis takes the prefill's S positions and
+    zeros past them (the reference's zero padding); a fixed-size state
+    is whole."""
+    for k, spec in cache_specs(cfg, 1, max_len).items():
+        dst = cache[k].select(spec.batch_axis, slot)
+        src = cache1[k].select(spec.batch_axis, 0)
+        if spec.seq_axis is None:
+            dst.copy_(src)
+        else:
+            ax = spec.seq_axis - (spec.seq_axis > spec.batch_axis)
+            S = src.shape[ax]
+            dst.narrow(ax, 0, S).copy_(src)
+            dst.narrow(ax, S, dst.shape[ax] - S).zero_()
     return cache

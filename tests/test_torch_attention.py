@@ -225,7 +225,8 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
     rng = np.random.default_rng(11)
     for (B, H, KH, S, D), causal, window in [
             ((2, 8, 2, 130, 64), True, 0), ((1, 4, 4, 77, 16), False, 0),
-            ((1, 8, 1, 200, 128), True, 48), ((2, 4, 2, 64, 32), True, 0)]:
+            ((1, 8, 1, 200, 128), True, 48), ((2, 4, 2, 64, 32), True, 0),
+            ((1, 32, 32, 130, 80), True, 0)]:
         q, k, v = (_pair(rng, s, dtype)[1].to(cuda_device) for s in (
             (B, H, S, D), (B, KH, S, D), (B, KH, S, D)))
         before = fleet.LAUNCHES["flash_attention"]
@@ -238,12 +239,13 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_paged_matches_plain(cuda_device, dtype):
-    _, torch_in = _paged_inputs(np.random.default_rng(12), 8, 32, 4, 64, 16,
-                                256, 16, dtype)
-    args = [t.to(cuda_device) for t in torch_in]
-    before = fleet.LAUNCHES["paged_attention"]
-    got = K.paged_attention(*args)
-    assert fleet.LAUNCHES["paged_attention"] == before + 1
-    torch.testing.assert_close(got.float(),
-                               K.paged_attention_plain(*args).float(),
-                               **tol(dtype))
+    for KH, D in ((4, 64), (32, 80)):
+        _, torch_in = _paged_inputs(np.random.default_rng(12), 8, 32, KH, D,
+                                    16, 256, 16, dtype)
+        args = [t.to(cuda_device) for t in torch_in]
+        before = fleet.LAUNCHES["paged_attention"]
+        got = K.paged_attention(*args)
+        assert fleet.LAUNCHES["paged_attention"] == before + 1
+        torch.testing.assert_close(got.float(),
+                                   K.paged_attention_plain(*args).float(),
+                                   **tol(dtype))

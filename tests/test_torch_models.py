@@ -17,22 +17,16 @@ import torch
 
 import repro.models.attention as RA
 from repro.configs import get_reduced as ref_reduced
-from repro.models import build_model as ref_build
-from repro.models.kvcache import grow_cache as ref_grow
 from repro.models.kvcache import write_slot as ref_write_slot
 from repro.serving.engine import _insert_cache as ref_insert_cache
 import repro_torch.models.attention as PA
 from repro_torch.configs import get_reduced
 from repro_torch.models import build_model, params_from_jax
-from repro_torch.models.kvcache import grow_cache, write_slot
+from repro_torch.models.kvcache import write_slot
 from repro_torch.serving.engine import _insert_cache
+from torch_lm_parity import models, run, t
 
 ARCH = "tinyllama-1.1b"
-B, S, STEPS = 2, 16, 8
-
-
-def _t(x):
-    return torch.from_numpy(np.asarray(x))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,54 +38,12 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _models(dtype, arch=ARCH):
-    rcfg = ref_reduced(arch, dtype=dtype)
-    rm = ref_build(rcfg)
-    rparams = rm.init_params(jax.random.key(0))
-    pcfg = get_reduced(arch, dtype=dtype)
-    pm = build_model(pcfg, device="cpu")
-    pparams = params_from_jax(
-        pcfg, jax.tree.map(np.asarray, rparams), device="cpu")
-    return rcfg, rm, rparams, pcfg, pm, pparams
-
-
-def _run(dtype, forced=None, arch=ARCH):
-    """Prefill S prompt tokens, then STEPS greedy decode steps (or the
-    ``forced`` tokens) on both; returns both logit streams and tokens."""
-    rcfg, rm, rparams, pcfg, pm, pparams = _models(dtype, arch)
-    tokens = np.random.default_rng(0).integers(
-        0, rcfg.vocab_size, (B, S)).astype(np.int32)
-    r_logits, r_cache = jax.jit(rm.prefill_fn)(
-        rparams, {"tokens": jnp.asarray(tokens)})
-    r_cache = ref_grow(rcfg, r_cache, S + STEPS + 1)
-    p_logits, p_cache = pm.prefill_fn(pparams, {"tokens": _t(tokens).long()})
-    p_cache = grow_cache(pcfg, p_cache, S + STEPS + 1)
-    r_dec = jax.jit(rm.decode_fn)
-    out = {"ref": [np.asarray(r_logits)], "port": [p_logits.numpy()],
-           "ref_tok": [], "port_tok": []}
-    for step in range(STEPS):
-        rt = np.asarray(out["ref"][-1]).argmax(-1).astype(np.int32)
-        pt = out["port"][-1].argmax(-1)
-        if forced is not None:
-            rt = pt = forced[step]
-        out["ref_tok"].append(rt)
-        out["port_tok"].append(pt)
-        pos = np.full(B, S + step, np.int32)
-        r_logits, r_cache = r_dec(rparams, r_cache, jnp.asarray(rt),
-                                  jnp.asarray(pos))
-        p_logits, p_cache = pm.decode_fn(pparams, p_cache,
-                                         _t(pt).long(), _t(pos).long())
-        out["ref"].append(np.asarray(r_logits))
-        out["port"].append(p_logits.numpy())
-    return out
-
-
 @pytest.mark.parametrize("arch", [ARCH, "starcoder2-3b", "h2o-danube-3-4b",
                                   "granite-8b"])
 def test_decoder_logits_match_reference_f32(arch):
     """tinyllama and granite (RMSNorm, SiLU), starcoder2 (LayerNorm, tanh
     GELU), h2o-danube (sliding window, ring-buffer cache)."""
-    out = _run("float32", arch=arch)
+    out = run(arch, "float32")
     for r, p in zip(out["ref"], out["port"]):
         np.testing.assert_allclose(p, r, rtol=1e-4, atol=1e-4)
     assert [t.tolist() for t in out["port_tok"]] == \
@@ -99,14 +51,14 @@ def test_decoder_logits_match_reference_f32(arch):
 
 
 def test_decoder_logits_match_reference_bf16():
-    forced = np.random.default_rng(1).integers(0, 256, (STEPS, B))
-    out = _run("bfloat16", forced=forced)
+    forced = np.random.default_rng(1).integers(0, 256, (8, 2))
+    out = run(ARCH, "bfloat16", forced=forced)
     for r, p in zip(out["ref"], out["port"]):
         assert np.abs(p - r).max() <= 5e-2
 
 
 def test_params_from_jax_holds_matrices_in_compute_dtype():
-    *_, pcfg, pm, pparams = _models("bfloat16")
+    *_, pcfg, pm, pparams = models(ARCH, "bfloat16")
     blk = pparams.layers[0]
     assert blk.attn.wq.dtype == torch.bfloat16
     assert blk.ln1.scale.dtype == torch.float32
@@ -115,8 +67,7 @@ def test_params_from_jax_holds_matrices_in_compute_dtype():
 
 
 def test_other_families_raise_with_their_slice():
-    for arch in ("olmoe-1b-7b", "rwkv6-3b", "zamba2-2.7b", "whisper-small",
-                 "llava-next-34b"):
+    for arch in ("olmoe-1b-7b", "whisper-small", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="slice 3"):
             build_model(get_reduced(arch), device="cpu")
 
@@ -134,10 +85,10 @@ def test_chunked_attention_matches_reference(h, kh, seq, chunk):
     q, k, v = _qkv(np.random.default_rng(seq + h), 2, seq, h, kh)
     ref = RA.chunked_attention(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), causal=True, chunk=chunk)
-    got = PA.chunked_attention(_t(q), _t(k), _t(v), causal=True, chunk=chunk)
+    got = PA.chunked_attention(t(q), t(k), t(v), causal=True, chunk=chunk)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
-    full = PA.full_attention_reference(_t(q), _t(k), _t(v), causal=True)
+    full = PA.full_attention_reference(t(q), t(k), t(v), causal=True)
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-5,
                                atol=1e-5)
 
@@ -147,7 +98,7 @@ def test_swa_attention_matches_reference(seq, w):
     q, k, v = _qkv(np.random.default_rng(seq + w), 2, seq, 4, 2)
     ref = RA.swa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            window=w)
-    got = PA.swa_attention(_t(q), _t(k), _t(v), window=w)
+    got = PA.swa_attention(t(q), t(k), t(v), window=w)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     full = RA.full_attention_reference(jnp.asarray(q), jnp.asarray(k),
@@ -181,7 +132,7 @@ def test_attention_block_matches_reference(window):
         (2, 24, pcfg.d_model)).astype(np.float32)
     pos = np.arange(24)[None, :]
     r_out, (rk, rv) = RA.attention(rp, jnp.asarray(x), rcfg, jnp.asarray(pos))
-    p_out, (pk, pv) = PA.attention(pm.layers[0].attn, _t(x), pcfg, _t(pos))
+    p_out, (pk, pv) = PA.attention(pm.layers[0].attn, t(x), pcfg, t(pos))
     for r, p in ((r_out, p_out), (rk, pk), (rv, pv)):
         np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=1e-4,
                                    atol=1e-4)
@@ -198,8 +149,8 @@ def test_write_slot_matches_reference():
     rk, rv = ref_write_slot((jnp.asarray(kc), jnp.asarray(vc)),
                             jnp.asarray(kn), jnp.asarray(vn),
                             jnp.asarray(slot))
-    pk, pv = write_slot((_t(kc.copy()), _t(vc.copy())), _t(kn), _t(vn),
-                        _t(slot).long())
+    pk, pv = write_slot((t(kc.copy()), t(vc.copy())), t(kn), t(vn),
+                        t(slot).long())
     assert np.array_equal(pk.numpy(), np.asarray(rk))
     assert np.array_equal(pv.numpy(), np.asarray(rv))
 
@@ -217,9 +168,9 @@ def test_insert_cache_matches_reference():
     ref = ref_insert_cache(
         {k: jnp.asarray(a, jnp.bfloat16) for k, a in full.items()},
         {k: jnp.asarray(a) for k, a in one.items()}, 2, cfg_r, 12)
-    got = _insert_cache({k: _t(a).to(torch.bfloat16)
+    got = _insert_cache({k: t(a).to(torch.bfloat16)
                          for k, a in full.items()},
-                        {k: _t(a) for k, a in one.items()}, 2, cfg_p, 12)
+                        {k: t(a) for k, a in one.items()}, 2, cfg_p, 12)
     for k in ("k", "v"):
         assert np.array_equal(got[k].float().numpy(),
                               np.asarray(ref[k], np.float32))
@@ -264,11 +215,11 @@ def test_paged_pool_and_gather_match_reference():
     table = np.array([[3, 1], [0, 7]], np.int32)
     rk, rv = RK.gather_pages(jnp.asarray(kp), jnp.asarray(vp),
                              jnp.asarray(table))
-    gk, gv = PK.gather_pages(_t(kp), _t(vp), _t(table))
+    gk, gv = PK.gather_pages(t(kp), t(vp), t(table))
     assert np.array_equal(gk.numpy(), np.asarray(rk))
     assert np.array_equal(gv.numpy(), np.asarray(rv))
     tok = rng.standard_normal((2, 16)).astype(np.float32)
-    pp.write(1, 5, 2, _t(tok), _t(tok))
+    pp.write(1, 5, 2, t(tok), t(tok))
     rp.write(1, 5, 2, jnp.asarray(tok), jnp.asarray(tok))
     assert np.array_equal(pp.k.float().numpy(), np.asarray(rp.k, np.float32))
 
@@ -284,7 +235,7 @@ def test_cross_entropy_matches_reference():
     for m in (None, mask):
         want = ref_ce(jnp.asarray(logits), jnp.asarray(labels),
                       None if m is None else jnp.asarray(m))
-        got = cross_entropy(_t(logits), _t(labels),
-                            None if m is None else _t(m))
+        got = cross_entropy(t(logits), t(labels),
+                            None if m is None else t(m))
         np.testing.assert_allclose([float(g) for g in got],
                                    [float(w) for w in want], rtol=1e-6)

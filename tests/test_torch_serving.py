@@ -5,22 +5,19 @@ engine and the serving backend run on "cuda" unless asked for "cpu",
 and raise without a card)."""
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_reduced as ref_reduced
-from repro.models import build_model as ref_build
 from repro.serving import EngineConfig as RefEngineConfig
 from repro.serving import MultiTenantEngine as RefEngine
 from repro_torch.configs import get_reduced
 from repro_torch.core import Quota, TenantSpec
-from repro_torch.models import params_from_jax
 from repro_torch.serving import (CLOUD_LATENCY_S, EngineConfig,
                                  MultiTenantEngine, VirtualClock)
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.scheduler import QuotaScheduler
+from torch_lm_parity import models
 
 ARCH = "tinyllama-1.1b"
 
@@ -177,22 +174,13 @@ def test_engine_termination_redirects_to_cloud():
 
 
 # ----------------------------------------------------- preemption regression
-def _carried(seed=3):
-    """Reduced tinyllama in f32 with the reference's weights."""
-    rcfg = ref_reduced(ARCH, dtype="float32")
-    rparams = ref_build(rcfg).init_params(jax.random.key(seed))
-    pcfg = get_reduced(ARCH, dtype="float32")
-    return rcfg, rparams, pcfg, params_from_jax(
-        pcfg, jax.tree.map(np.asarray, rparams), device="cpu")
-
-
 def test_preemption_resume_bitwise_identical():
     """A preempted-then-resumed request must produce EXACTLY the token
     stream of an unpreempted run, keep its TTFT and never double-append
     (prompt + generated[:-1] re-prefilled, the last token fed back at the
     restored KV position) — on weights carried from the reference, whose
     own engine gives the same stream."""
-    rcfg, rparams, pcfg, pparams = _carried()
+    rcfg, _, rparams, pcfg, _, pparams = models(ARCH, "float32", seed=3)
 
     def fresh():
         clock = VirtualClock(0.25)
