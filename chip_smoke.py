@@ -208,8 +208,54 @@ def phase_env(fleet) -> dict:
                           text=True).stdout.strip().splitlines()
     log(f"nvcc: {nvcc[-1] if nvcc else '?'}")
     secs = fleet.build(verbose=True)
-    log(f"kernel build: {secs:.2f} s (nvcc {' '.join(fleet.NVCC_FLAGS)})")
-    return {"build_s": secs}
+    log(f"kernel build: {secs:.2f} s (nvcc {' '.join(fleet.NVCC_FLAGS)}; "
+        f"-fmad=false for {', '.join(fleet._NO_FMAD)})")
+    ptxas = {}
+    for name in SERVING_KERNELS:
+        ptxas[name] = ptxas_report(fleet.BUILD_LOGS.get(name, ""))
+        for f in ptxas[name]:
+            log(f"[ptxas] {name} {f['function']}: {f['registers']} "
+                f"registers, spill stores/loads {f['spill_stores']}/"
+                f"{f['spill_loads']} B, stack {f['stack']} B"
+                + (", wgmma SERIALIZED" if f["wgmma_serialized"] else ""))
+    return {"build_s": secs, "ptxas": ptxas}
+
+
+def ptxas_report(text: str) -> list:
+    """Registers, spills and stack of each kernel in nvcc's ``-Xptxas
+    -v`` output, and whether ptxas serialized its wgmma instructions."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
+        if not m:
+            return mangled
+        args = re.findall(r"Li(\d+)E|(f)|13__nv_bfloat16|(S\d*_)",
+                          m.group(2) + "E")
+        names = [n or ("f32" if f else "bf16") for n, f, _ in args]
+        return f"{m.group(1)}<{','.join(names)}>"
+
+    out, cur = [], None
+    serialized = set(re.findall(r"serialized[^']*'(\w+)'", text))
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": short(m.group(1)), "registers": None,
+                   "spill_stores": None, "spill_loads": None, "stack": None,
+                   "wgmma_serialized": m.group(1) in serialized}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -541,14 +587,20 @@ def _attn_case(att, label, kind, args, kw, dtype, bound, library):
                 ok=err <= ATTN_TOL[dtype])
 
 
-def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag=""):
+def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag="",
+                    sweep=()):
     """K4 and K5 against their plain versions at an engine's shapes:
-    (B=1, H, KH, D) prefill for each flash spec (S, causal, window,
-    dtype), and decode of B = SERVE_TENANTS · SERVE_REQUESTS sequences
-    of 1,025–1,056 tokens (page 16) for each paged mode ("identity" — a
-    dense (B, 2048, KH, D) cache through the identity page table — or
-    "random" distinct pages, with a dtype). ``tag`` ends every label.
-    Returns (flash cases, paged cases)."""
+    (B=1, H, KH, D) prefill for each flash spec (Sq, causal, window,
+    dtype[, Sk]), and decode for each paged mode (mode, dtype[, B]) of B
+    = SERVE_TENANTS · SERVE_REQUESTS sequences (page 16): "identity" — a
+    dense (B, 2048, KH, D) cache through the identity page table, lengths
+    1,025–1,056 — "random" distinct pages with the same lengths, or
+    "edges": random pages and lengths around K5's 128-token rounds (1,
+    127–129, its split count's rounds − 1, exactly and + 1, the whole
+    table; the first B of them). dtype "mixed" is f32 q with bf16 pools.
+    ``tag`` ends every label. ``sweep`` lists split counts at which the
+    first paged case is also timed. Returns (flash cases, paged
+    cases)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -562,13 +614,19 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag=""):
         return x.to(device=DEVICE, dtype=getattr(torch, dtype))
 
     flash = []
-    for S, causal, window, dtype in flash_specs:
-        q, k, v = (rand(s, dtype) for s in ((1, H, S, D), (1, KH, S, D),
-                                            (1, KH, S, D)))
-        if window:
-            pos = torch.arange(S, device=DEVICE)
-            band = (pos[None, :] <= pos[:, None]) & \
-                (pos[None, :] > pos[:, None] - window)
+    for spec in flash_specs:
+        S, causal, window, dtype = spec[:4]
+        Sk = spec[4] if len(spec) > 4 else S
+        q, k, v = (rand(s, dtype) for s in ((1, H, S, D), (1, KH, Sk, D),
+                                            (1, KH, Sk, D)))
+        if window or Sk != S:
+            qp = torch.arange(S, device=DEVICE)[:, None]
+            kp = torch.arange(Sk, device=DEVICE)[None, :]
+            band = torch.ones((S, Sk), dtype=torch.bool, device=DEVICE)
+            if causal:
+                band &= kp <= qp
+            if window:
+                band &= kp > qp - window
 
             def lib(q=q, k=k, v=v, band=band):
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
@@ -578,35 +636,58 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag=""):
                 return F.scaled_dot_product_attention(q, k, v,
                                                       is_causal=causal,
                                                       enable_gqa=True)
-        label = (f"S={S} {'causal' if causal else 'non-causal'}"
-                 + (f" window={window}" if window else "") + tag)
+        label = (f"S={S}" + (f" Sk={Sk}" if Sk != S else "")
+                 + f" {'causal' if causal else 'non-causal'}"
+                 + (f" window={window}" if window else "")
+                 + (f" H={H} KH={KH} D={D}" if D not in (64, 80) else "")
+                 + tag)
         flash.append(_attn_case(
             att, label, "flash", (q, k, v),
             dict(causal=causal, window=window), dtype,
-            att.flash_attention_bound_ms(1, H, KH, S, S, D, causal=causal,
+            att.flash_attention_bound_ms(1, H, KH, S, Sk, D, causal=causal,
                                          window=window,
                                          itemsize=q.element_size()), lib))
 
-    B, page, mp = SERVE_TENANTS * SERVE_REQUESTS, 16, SERVE_SMAX // 16
-    lengths_np = rng.integers(SERVE_PROMPT + 1, SERVE_PROMPT + SERVE_NEW + 1,
-                              B).astype(np.int32)
-    lengths = torch.from_numpy(lengths_np).to(DEVICE)
-    valid = (torch.arange(SERVE_SMAX, device=DEVICE)[None, :]
-             < lengths[:, None])[:, None, None, :]
     paged = []
-    for mode, dtype in paged_modes:
-        q = rand((B, H, D), dtype)
+    for pm in paged_modes:
+        mode, dtype = pm[:2]
+        B = pm[2] if len(pm) > 2 else SERVE_TENANTS * SERVE_REQUESTS
+        page, mp = 16, SERVE_SMAX // 16
+        qd, pd = ("float32", "bfloat16") if dtype == "mixed" else (dtype,
+                                                                   dtype)
+        splits = att.paged_splits(
+            B * KH * -(-(H // KH) // att.paged_rows(H // KH)), mp * page,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        if mode == "edges":
+            # a sequence's splits are whole rounds of min(len, capacity):
+            # lengths that end inside, on and just past a round, and that
+            # fill all splits, all but one token, or spill into a longer
+            # split with the last ones empty
+            r, full = att.PAGED_ROUND, att.PAGED_ROUND * splits
+            edges = [1, r - 1, r, r + 1, full - 1, full, full + 1, mp * page]
+            lengths_np = np.array(edges[:B] if B > 1 else [full + 1],
+                                  np.int32)
+        else:
+            lengths_np = rng.integers(SERVE_PROMPT + 1,
+                                      SERVE_PROMPT + SERVE_NEW + 1,
+                                      B).astype(np.int32)
+        lengths = torch.from_numpy(lengths_np).to(DEVICE)
+        valid = (torch.arange(mp * page, device=DEVICE)[None, :]
+                 < lengths[:, None])[:, None, None, :]
+        q = rand((B, H, D), qd)
         if mode == "identity":
             label = (f"identity view of a dense ({B}, {SERVE_SMAX}, {KH}, "
                      f"{D}) cache")
-            kc, vc = (rand((B, SERVE_SMAX, KH, D), dtype) for _ in range(2))
+            kc, vc = (rand((B, SERVE_SMAX, KH, D), pd) for _ in range(2))
             kp, page = att.dense_cache_pages(kc)
             vp, _ = att.dense_cache_pages(vc)
             table = att.identity_page_table(B, SERVE_SMAX, page, DEVICE)
         else:
-            label = "random distinct pages"
+            label = ("random distinct pages" if mode == "random" else
+                     f"random pages, B={B}, lengths "
+                     f"{','.join(map(str, lengths_np))} ({splits} splits)")
             P = 4 * B * mp
-            kp, vp = (rand((KH, P, page, D), dtype) for _ in range(2))
+            kp, vp = (rand((KH, P, page, D), pd) for _ in range(2))
             table = torch.from_numpy(np.stack([
                 rng.choice(P, size=mp, replace=False) for _ in range(B)
             ]).astype(np.int32)).to(DEVICE)
@@ -614,15 +695,32 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag=""):
                 B, KH, mp * page, D).transpose(1, 2)
             vc = vp[:, table.long()].permute(1, 0, 2, 3, 4).reshape(
                 B, KH, mp * page, D).transpose(1, 2)
+        if D not in (64, 80) or H != 32:
+            label += f" H={H} KH={KH} D={D}"
 
-        def lib(q=q, kc=kc, vc=vc):
+        # SDPA takes one dtype: mixed cases give it f32 copies of the pools
+        kl, vl = (x.transpose(1, 2).to(q.dtype) for x in (kc, vc))
+
+        def lib(q=q, kl=kl, vl=vl, valid=valid):
             return F.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=valid, enable_gqa=True)
-        paged.append(_attn_case(
-            att, label + tag, "paged", (q, kp, vp, table, lengths), {}, dtype,
+                q[:, :, None], kl, vl, attn_mask=valid, enable_gqa=True)
+        args = (q, kp, vp, table, lengths)
+        case = _attn_case(
+            att, label + tag, "paged", args, {},
+            "bfloat16" if "bfloat16" in (qd, pd) else "float32",
             att.paged_attention_bound_ms(lengths_np, KH, H, D, mp, page,
-                                         itemsize=q.element_size()), lib))
+                                         itemsize=kp.element_size()), lib)
+        case["splits"] = splits
+        if dtype == "mixed":
+            case["case"] += " (f32 q, bf16 pools)"
+        if sweep and not paged:
+            code = {"float32": 0, "bfloat16": 1, "mixed": 2}[dtype]
+            case["split_sweep_ms"] = {
+                n: graph_ms(lambda n=n: att._paged_launch(code, *args, n))
+                for n in sweep}
+            log(f"[kernel case] paged_attention {label} split sweep (ms): "
+                f"{json.dumps(case['split_sweep_ms'])}; the plan: {splits}")
+        paged.append(case)
     return flash, paged
 
 
@@ -655,16 +753,30 @@ def merge_cases(out: dict, name: str, cases: list) -> None:
 def serving_kernel_checks(out: dict) -> None:
     """K4 and K5 against their plain versions at tinyllama-1.1b's shapes:
     (B=1, H=32, KH=4, D=64) prefill and (B=8, H=32, KH=4, D=64, page 16)
-    decode."""
+    decode, with ragged and windowed prefills, the other head dims, K5's
+    split edges in all three dtype codes, B = 1 and G = 1, and K5 timed
+    at other split counts than its plan."""
     flash, paged = attention_cases(
         21, 32, 4, 64,
         ((SERVE_PROMPT, True, 0, "bfloat16"), (6, True, 0, "bfloat16"),
          (130, True, 0, "bfloat16"), (SERVE_PROMPT, True, 256, "bfloat16"),
-         (130, False, 0, "bfloat16"), (130, True, 0, "float32")),
+         (130, False, 0, "bfloat16"), (130, True, 0, "float32"),
+         (1000, True, 0, "bfloat16"), (1000, True, 100, "bfloat16"),
+         (130, False, 0, "bfloat16", 1000), (70, True, 0, "bfloat16", 1000),
+         (1000, True, 100, "float32")),
         (("identity", "bfloat16"), ("random", "bfloat16"),
-         ("random", "float32")))
+         ("random", "float32"), ("edges", "bfloat16"),
+         ("edges", "float32"), ("edges", "mixed"), ("edges", "bfloat16", 1)),
+        sweep=(1, 2, 3, 5, 9))
     merge_cases(out, "flash_attention", flash)
     merge_cases(out, "paged_attention", paged)
+    for D in (16, 32, 128):     # the other head dims K4/K5 are built for
+        flash, paged = attention_cases(
+            30 + D, 8, 2, D,
+            ((1000, True, 0, "bfloat16"), (130, True, 48, "bfloat16")),
+            (("edges", "bfloat16"),))
+        merge_cases(out, "flash_attention", flash)
+        merge_cases(out, "paged_attention", paged)
 
 
 def _timed(fn, sink: list):
@@ -871,6 +983,19 @@ def served_dtype_cut_check(rt, prompt, keep: int) -> dict:
            "cpu_max_abs_logit_err": cpu_err,
            "max_abs_logit": float(ref.abs().max()), "tolerance": tol,
            "cpu_prefill_s": cpu_s, "ok": card_err <= tol}
+    if rt.cfg.family != "rwkv6":
+        # how far K4's rounding of P to bf16 explains the card's distance:
+        # the same card run with K4's plain version (p in f32) in its place
+        from repro_torch.kernels import attention as att
+
+        kernel = att.flash_attention
+        att.flash_attention = att.flash_attention_plain
+        try:
+            plain, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
+        finally:
+            att.flash_attention = kernel
+        out["card_max_abs_logit_err_plain_flash"] = float(
+            (plain - ref).abs().max())
     log(f"[cut check] {json.dumps(out)}")
     return out
 
@@ -1058,8 +1183,10 @@ def recurrent_kernel_checks(out: dict) -> None:
     flash, paged = attention_cases(
         22, 32, 32, 80,
         ((SERVE_PROMPT, True, 0, "bfloat16"),
-         (SERVE_PROMPT, True, 0, "float32")),
-        (("identity", "bfloat16"), ("identity", "float32")), tag=" D=80")
+         (SERVE_PROMPT, True, 0, "float32"), (1000, True, 100, "bfloat16")),
+        (("identity", "bfloat16"), ("identity", "float32"),
+         ("edges", "bfloat16"), ("edges", "mixed")), tag=" D=80",
+        sweep=(1, 2, 3))
     merge_cases(out, "flash_attention", flash)
     merge_cases(out, "paged_attention", paged)
 
@@ -1181,11 +1308,13 @@ def main(argv=None) -> int:
                  "event_ms": r["event_ms"], "ms_source": r["ms_source"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        entry.update({k: r[k] for k in ("splits", "split_sweep_ms")
+                      if k in r})
         if "modes" in r:
             entry["modes"] = {m: {k: v[k] for k in (
                 "max_abs_err", "ms", "event_ms", "plain_ms", "bound_ms",
-                "bound_by") + (("library_ms",) if "library_ms" in v else ())}
-                for m, v in r["modes"].items()}
+                "bound_by", "library_ms", "splits", "split_sweep_ms")
+                if k in v} for m, v in r["modes"].items()}
         record.append(entry)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(dict.fromkeys(failures)),

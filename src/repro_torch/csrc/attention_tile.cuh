@@ -1,6 +1,8 @@
-// Shared core of the two attention kernels (flash_attention.cu,
-// paged_attention.cu): one warp's online-softmax update of up to ROWS
-// query rows against one tile of TILE keys staged in shared memory.
+// The CUDA-core online-softmax pieces of the attention kernels: the f32
+// route of flash_attention.cu runs one warp's update of up to ROWS query
+// rows against one tile of TILE keys staged in shared memory (below);
+// paged_attention.cu takes NEG_INF, the warp reductions and the element
+// conversions.
 //
 // Score pass: lane j owns key j of the tile and computes its dot
 // product with every row (the K row is read once from shared memory

@@ -17,9 +17,27 @@ attention  ``paged_attention``               and V row read once (decode)
            attention.py)
 ========== ================================= ============================
 
-Both share one warp-level online-softmax core (``attention_tile.cuh``).
+K4 takes one of two routes by dtype. bf16 runs on the tensor cores
+(``wgmma``): a warpgroup owns 64 query rows, S = Q·Kᵀ and O += P·V are
+warpgroup products from bf16 tiles that the tensor memory accelerator
+streams into shared memory while earlier tiles compute, and P is
+rounded to bf16 for the second product — the one rounding the f32
+Pallas kernel does not have, well inside the bf16 tolerance. f32 stays
+on the CUDA cores (``attention_tile.cuh``): the tensor cores would
+compute in TF32, beyond the f32 tolerance.
+
+K5 splits each sequence across CTAs (flash decoding): the grid is
+(sequence · kv head · row group, split), a CTA carries exactly the
+query rows that share its kv head, streams K and V in their own dtype,
+and writes its partial softmax state when there are several splits;
+the last CTA of each group to finish merges them
+(:func:`paged_attention_merge_plain` is the merge's plain version).
+The number of splits comes from the grid size and the table's capacity
+(:func:`paged_splits`), each CTA's token range from its sequence's
+length on the card (:func:`paged_split_bounds`).
+
 Every wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises (no fallback). Each launch
+CUDA tensors it launches the kernel or raises (no fallback). Each call
 adds one to ``fleet.LAUNCHES``. The plain versions are the oracles on
 the card and the CPU path of the tests: blockwise online softmax for
 flash (``flash_attention_plain``), gather plus masked softmax for paged
@@ -28,13 +46,15 @@ flash (``flash_attention_plain``), gather plus masked softmax for paged
 Layouts follow the JAX package: flash takes q (B, H, Sq, D) and k/v
 (B, KH, Sk, D), paged takes q (B, H, D), pools (KH, P, page, D), an
 int32 page table (B, max_pages) and int32 lengths (B,). Both kernels
-read through element strides (the last dimension contiguous), so the
-model's (B, S, H, D) activations and a dense (B, Smax, KH, D) cache pass
-as views without a copy (:func:`dense_cache_pages`).
+read through element strides (the last dimension contiguous, rows
+16-byte aligned), so the model's (B, S, H, D) activations and a dense
+(B, Smax, KH, D) cache pass as views without a copy
+(:func:`dense_cache_pages`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +67,12 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: streaming multiprocessors of an H100 SXM (the wrapper reads the card's)
+SMS = 132
+#: K5 splits a sequence in whole rounds of this many tokens (4 warps ×
+#: 32-token tiles), into at most this many splits
+PAGED_ROUND = 128
+PAGED_MAX_SPLITS = 32
 
 
 def _strides(*tensors, dims: int = 3) -> ctypes.Array:
@@ -147,10 +173,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes f32 or bf16 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.stride(-1) != 1:
-        raise ValueError("flash_attention: q's last dimension must be "
-                         "contiguous")
-    _check_vector_rows(k, v)
+    _check_vector_rows(q, k, v, what="flash_attention")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = _strides(q, k, v, out)     # alive until the launch returns
@@ -240,14 +263,97 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not q.is_contiguous():
         raise ValueError("paged_attention: q must be contiguous")
     _check_vector_rows(k_pool, v_pool)
+    return _paged_launch(code, q, k_pool, v_pool, page_table, lengths,
+                         paged_splits(_paged_ctas(B, H, KH), mp * page,
+                                      _sm_count(q.device)))
+
+
+def _paged_launch(code, q, k_pool, v_pool, page_table, lengths, splits):
+    """Launch K5 on checked CUDA inputs with ``splits`` splits of each
+    sequence (the wrapper's plan; chip_smoke.py also times others)."""
+    B, H, D = q.shape
+    KH, _, page, _ = k_pool.shape
+    mp = page_table.shape[1]
     out = torch.empty_like(q)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(q.device, _paged_ctas(B, H, KH))
     strides = _strides(k_pool, v_pool)   # alive until the launch returns
     fleet._launch("paged_attention", code, D, q.data_ptr(),
                   k_pool.data_ptr(), v_pool.data_ptr(),
                   page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                   B, H, KH, mp, page, ctypes.addressof(strides),
-                  float(D ** -0.5))
+                  float(D ** -0.5), splits,
+                  None if part is None else part.data_ptr(),
+                  None if counters is None else counters.data_ptr())
     return out
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """K5's per-CTA-group split counters on ``device``: int32 zeros that
+    each launch leaves zero, kept across calls (one stream at a time)."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _paged_ctas(B: int, H: int, KH: int) -> int:
+    """K5's CTAs a split: one per (sequence, kv head, row group)."""
+    return B * KH * -(-(H // KH) // paged_rows(H // KH))
+
+
+def paged_rows(G: int) -> int:
+    """Query rows a K5 CTA carries for a group of G = H / KH rows: G
+    itself for 1, 2, 4 or 8, else the next of those (8 beyond, in
+    ceil(G / 8) groups)."""
+    return next(r for r in (1, 2, 4, 8) if r >= min(G, 8))
+
+
+def paged_splits(ctas: int, capacity: int, sms: int = SMS) -> int:
+    """Splits of each sequence across CTAs: enough for about one CTA an
+    SM over the ``ctas`` (sequence, kv head, row group) CTAs, and no more
+    than the table's ``capacity`` (max_pages · page) has 128-token rounds,
+    so a short table takes one split. More splits leave each warp one
+    tile, whose load nothing overlaps, and more partial states to merge
+    (chip_smoke.py's split sweep). The lengths play no part: they lie on
+    the card, and reading them would stall the host each layer."""
+    want = -(-sms // max(ctas, 1))
+    return max(1, min(want, -(-capacity // PAGED_ROUND), PAGED_MAX_SPLITS))
+
+
+def paged_split_bounds(length: int, capacity: int, splits: int
+                       ) -> list[tuple[int, int]]:
+    """The token ranges [begin, end) that K5's CTAs of one sequence take,
+    as the kernel computes them from the length: whole 128-token rounds
+    of min(length, capacity); the splits past the last are empty."""
+    n = max(0, min(length, capacity))
+    per = -(-n // splits)
+    size = max(PAGED_ROUND, -(-per // PAGED_ROUND) * PAGED_ROUND)
+    return [(min(n, s * size), min(n, (s + 1) * size)) for s in range(splits)]
+
+
+def paged_attention_merge_plain(m, l, acc, dtype=torch.float32
+                                ) -> torch.Tensor:
+    """K5's merge of the splits' partial states: m and l (B, H, S), acc
+    (B, H, S, D), all f32 and unnormalised → (B, H, D) in ``dtype``:
+    o = Σ acc_s e^(m_s − m) / Σ l_s e^(m_s − m) with m = max m_s. An
+    empty split (m = NEG_INF, l = 0, acc = 0) adds nothing."""
+    f = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    ls = (l * f).sum(dim=-1)
+    o = (acc * f[..., None]).sum(dim=-2)
+    return (o / torch.clamp(ls, min=1e-30)[..., None]).to(dtype)
 
 
 def dense_cache_pages(cache: torch.Tensor) -> tuple[torch.Tensor, int]:

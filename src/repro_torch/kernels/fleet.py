@@ -101,8 +101,21 @@ _SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("latency_scale", "row_draw", "poisson", "flash_attention",
             "paged_attention", "rwkv6", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: sources built with unfused multiply-adds: K1-K3's bit-exactness to
+#: JAX's threefry and latency scale rests on it, and K6/K7 were held to
+#: their plain versions so; the attention kernels fuse freely
+_NO_FMAD = ("latency_scale", "row_draw", "poisson", "rwkv6", "ssd")
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags of one source (without ``-Xptxas -v``)."""
+    return NVCC_FLAGS + (("-fmad=false",) if name in _NO_FMAD else ())
+
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: nvcc's output per source from the last verbose build
+BUILD_LOGS: dict[str, str] = {}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
@@ -115,7 +128,8 @@ _ARGTYPES = {
     "flash_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _INT, _INT, _INT,
                             _INT, _INT, _P, _INT, _INT, ctypes.c_float, _P],
     "paged_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _INT, _INT,
-                            _INT, _INT, _INT, _P, ctypes.c_float, _P],
+                            _INT, _INT, _INT, _P, ctypes.c_float, _INT, _P,
+                            _P, _P],
     "rwkv6_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
                   _INT, _P, _P],
     "ssd_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
@@ -148,7 +162,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str, extra: tuple) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name) + extra).encode())
     for f in [_SRC_DIR / f"{name}.cu", *sorted(_SRC_DIR.glob("*.cuh"))]:
         h.update(f.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
@@ -158,8 +172,9 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
     """Compile the named kernels (all ``nvcc`` processes started
     together) and load them; returns the wall seconds. Libraries are
     keyed by a hash of their sources and flags, so a rebuilt tree never
-    loads a stale one. ``verbose`` adds ``-Xptxas -v`` and prints what
-    the assembler reports (registers, spills)."""
+    loads a stale one. ``verbose`` adds ``-Xptxas -v``, prints what the
+    assembler reports (registers, spills) and keeps it in
+    :data:`BUILD_LOGS`."""
     t0 = time.perf_counter()
     extra = ("-Xptxas", "-v") if verbose else ()
     out_dir = build_dir()
@@ -172,8 +187,8 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(_SRC_DIR), "-o",
-               str(tmp), str(_SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), *extra, "-I", str(_SRC_DIR),
+               "-o", str(tmp), str(_SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
@@ -181,6 +196,7 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
     for name, (proc, tmp, path) in procs.items():
         log, _ = proc.communicate()
         if verbose and log:
+            BUILD_LOGS[name] = log
             print(f"[nvcc {name}]\n{log}")
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
