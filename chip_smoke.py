@@ -211,7 +211,7 @@ def phase_env(fleet) -> dict:
     log(f"kernel build: {secs:.2f} s (nvcc {' '.join(fleet.NVCC_FLAGS)}; "
         f"-fmad=false for {', '.join(fleet._NO_FMAD)})")
     ptxas = {}
-    for name in SERVING_KERNELS:
+    for name in SERVING_KERNELS + RECURRENT_KERNELS:
         ptxas[name] = ptxas_report(fleet.BUILD_LOGS.get(name, ""))
         for f in ptxas[name]:
             log(f"[ptxas] {name} {f['function']}: {f['registers']} "
@@ -227,13 +227,23 @@ def ptxas_report(text: str) -> list:
     import re
 
     def short(mangled):
-        m = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", mangled)
-        if not m:
+        # the kernel's name: the mangled identifier that ends in _kernel
+        # (a length, then that many characters), and its template args
+        for i in range(len(mangled)):
+            m = re.match(r"\d+", mangled[i:])
+            name = m and mangled[i + m.end():i + m.end() + int(m.group())]
+            if name and name.endswith("_kernel"):
+                break
+        else:
             return mangled
-        args = re.findall(r"Li(\d+)E|(f)|13__nv_bfloat16|(S\d*_)",
-                          m.group(2) + "E")
-        names = [n or ("f32" if f else "bf16") for n, f, _ in args]
-        return f"{m.group(1)}<{','.join(names)}>"
+        m = re.match(r"I(.*?)EEv", mangled[i + m.end() + len(name):])
+        if not m:
+            return name
+        args = re.findall(r"Li(\d+)E|Lb(\d)E|(f)|13__nv_bfloat16|(S\d*_)",
+                          m.group(1) + "E")
+        names = [n or {"1": "tc", "0": "fma"}.get(b) or ("f32" if f else "bf16")
+                 for n, b, f, _ in args]
+        return f"{name}<{','.join(names)}>"
 
     out, cur = [], None
     serialized = set(re.findall(r"serialized[^']*'(\w+)'", text))
@@ -983,19 +993,33 @@ def served_dtype_cut_check(rt, prompt, keep: int) -> dict:
            "cpu_max_abs_logit_err": cpu_err,
            "max_abs_logit": float(ref.abs().max()), "tolerance": tol,
            "cpu_prefill_s": cpu_s, "ok": card_err <= tol}
-    if rt.cfg.family != "rwkv6":
-        # how far K4's rounding of P to bf16 explains the card's distance:
-        # the same card run with K4's plain version (p in f32) in its place
-        from repro_torch.kernels import attention as att
+    # how far each kernel's roundings explain the card's distance: the
+    # same card run with the kernel's plain version in its place (K4: p
+    # in f32; K6/K7: every product in f32); informational
+    from repro_torch.kernels import attention as att
+    from repro_torch.kernels import rwkv6 as k6
+    from repro_torch.kernels import ssd as k7
+    from repro_torch.models import mamba2, rwkv6
 
-        kernel = att.flash_attention
-        att.flash_attention = att.flash_attention_plain
+    swaps = ({"plain_rwkv6": ((rwkv6, "rwkv6_forward",
+                               k6.rwkv6_forward_plain),)}
+             if rt.cfg.family == "rwkv6" else
+             {"plain_flash": ((att, "flash_attention",
+                               att.flash_attention_plain),),
+              "plain_ssd": ((mamba2, "ssd_forward", k7.ssd_forward_plain),),
+              "plain_flash_and_ssd": (
+                  (att, "flash_attention", att.flash_attention_plain),
+                  (mamba2, "ssd_forward", k7.ssd_forward_plain))})
+    for key, swap in swaps.items():
+        kept = [getattr(mod, name) for mod, name, _ in swap]
+        for mod, name, plain in swap:
+            setattr(mod, name, plain)
         try:
-            plain, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
+            got, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
         finally:
-            att.flash_attention = kernel
-        out["card_max_abs_logit_err_plain_flash"] = float(
-            (plain - ref).abs().max())
+            for (mod, name, _), fn in zip(swap, kept):
+                setattr(mod, name, fn)
+        out[f"card_max_abs_logit_err_{key}"] = float((got - ref).abs().max())
     log(f"[cut check] {json.dumps(out)}")
     return out
 
@@ -1062,15 +1086,49 @@ def serving_scenarios(fleet) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
+def kernel_breakdown_us(fn, reps: int = 10) -> dict:
+    """Device µs per launch of each CUDA kernel ``fn`` launches, by
+    kernel name, from a torch.profiler trace of ``reps`` calls (averaged
+    over the launches the trace recorded: late in a long run it loses
+    some); empty when the profiler records no device activity."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as e:
+        log(f"profiler unavailable ({e})")
+        return {}
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0)
+        m = re.search(r"(\w+_kernel)", e.key)
+        if t and m:
+            out[m.group(1)] = t / e.count
+    return out
+
+
 def _recurrent_case(label, dtype, kernel, plain, args, kw, bound, *,
-                    long_run: bool) -> dict:
+                    long_run: bool, phases: bool = False) -> dict:
     """One K6/K7 case: the kernel against its plain version run in f64
     on the same inputs (the oracle — two f32 sums in other orders can
     differ by more than the tolerance), and the kernel's and the plain
-    version's (in the inputs' dtype) device times by graph replay.
+    version's (in the inputs' dtype) device times by graph replay; with
+    ``phases``, the device time of each of the call's launches.
     Outputs: the reference's allclose tolerance (2e-2 bf16, 2e-5 f32),
     or over ``long_run``s in f32, 1e-4 × max |o|; final states 1e-3."""
     import torch
+
+    if phases:
+        log(f"[phases] {kernel.__name__} {label} {dtype}: µs per launch "
+            f"{json.dumps(kernel_breakdown_us(lambda: kernel(*args, **kw)))}")
 
     got, s = kernel(*args, **kw)
     want, want_s = plain(*(a.double() for a in args),
@@ -1104,7 +1162,11 @@ def recurrent_kernel_checks(out: dict) -> None:
     prefill shapes of rwkv6-3b (1, 40, 1024, 64) and zamba2-2.7b
     (1, 80, 1024, 64, N = 64) in the model's strided layouts, at the
     reference's sweep shapes (tests/test_kernels.py), each with and
-    without an initial state — and K4/K5 at zamba2's head dim 80."""
+    without an initial state, and at the edges of the kernels' 64-step
+    chunks (T = 1, 63, 65 and 1,000, B = 2, K6's strong decays and decays
+    near 1) — and K4/K5 at zamba2's head dim 80. Runs whose state grows
+    (1,000 steps and more, decays near 1) are held in f32 at 1e-4 × max
+    |o|: there f32 sums round past 2e-5 in any order."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1118,46 +1180,61 @@ def recurrent_kernel_checks(out: dict) -> None:
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         return x.to(device=DEVICE, dtype=dtype)
 
-    # (shape, dtypes, initial state, full width in the model's layout)
+    both = ("bfloat16", "float32")
+    # (shape, dtypes, initial state, the model's layout, decay shift)
     cases = []
-    for (B, H, T, K), dtypes, init, full in (
-            ((1, 40, SERVE_PROMPT, 64), ("bfloat16", "float32"), False, True),
-            ((1, 40, SERVE_PROMPT, 64), ("bfloat16",), True, True),
-            ((2, 2, 64, 16), ("bfloat16", "float32"), False, False),
-            ((1, 4, 96, 32), ("bfloat16", "float32"), False, False),
-            ((2, 1, 50, 16), ("bfloat16", "float32"), True, False)):
+    for (B, H, T, K), dtypes, init, layout, decay in (
+            ((1, 40, SERVE_PROMPT, 64), both, False, True, None),
+            ((1, 40, SERVE_PROMPT, 64), ("bfloat16",), True, True, None),
+            ((2, 2, 64, 16), both, False, False, None),
+            ((1, 4, 96, 32), both, False, False, None),
+            ((2, 1, 50, 16), both, True, False, None),
+            ((2, 2, 1, 64), both, True, False, None),
+            ((2, 2, 63, 64), both, False, False, None),
+            ((2, 2, 65, 32), both, True, False, None),
+            ((2, 2, 1000, 64), both, True, True, None),
+            ((2, 2, 130, 64), both, True, False, -8.0),
+            ((2, 2, 130, 64), both, True, False, 8.0)):
         for dtype in dtypes:
             dt = getattr(torch, dtype)
-            # full width: (B, T, H, K) projections seen as (B, H, T, K)
-            shape = (B, T, H, K) if full else (B, H, T, K)
+            # the model's layout: (B, T, H, K) projections seen as
+            # (B, H, T, K)
+            shape = (B, T, H, K) if layout else (B, H, T, K)
             r, k, v = (rand(shape, dt) for _ in range(3))
-            w = torch.sigmoid(rand(shape))
-            if full:
+            w = torch.sigmoid(rand(shape) if decay is None
+                              else decay + 0.1 * rand(shape))
+            if layout:
                 r, k, v, w = (x.transpose(1, 2) for x in (r, k, v, w))
             kw = {"init_state": rand((B, H, K, K))} if init else {}
-            label = (f"({B}, {H}, {T}, {K})" + (" model layout" if full
+            label = (f"({B}, {H}, {T}, {K})" + (" model layout" if layout
                                                  else "")
-                     + (" initial state" if init else ""))
+                     + (" initial state" if init else "")
+                     + (f" w = sigmoid({decay:+g})" if decay else ""))
             cases.append(_recurrent_case(
                 label, dtype, k6.rwkv6_forward, k6.rwkv6_forward_plain,
                 (r, k, v, w, rand((H, K))), kw,
                 k6.rwkv6_bound_ms(B, H, T, K, itemsize=r.element_size(),
-                                  init_state=init), long_run=full))
+                                  init_state=init),
+                long_run=T >= 1000 or (decay or 0) > 0,
+                phases=T == SERVE_PROMPT))
     merge_cases(out, "rwkv6", cases)
 
     cases = []
-    for (B, H, T, P, N, chunk), dtypes, init, full in (
-            ((1, 80, SERVE_PROMPT, 64, 64, 128), ("bfloat16", "float32"),
-             False, True),
+    for (B, H, T, P, N, chunk), dtypes, init, layout in (
+            ((1, 80, SERVE_PROMPT, 64, 64, 128), both, False, True),
             ((1, 80, SERVE_PROMPT, 64, 64, 128), ("bfloat16",), True, True),
-            ((2, 2, 128, 16, 16, 32), ("bfloat16", "float32"), False, False),
-            ((1, 4, 64, 32, 32, 64), ("bfloat16", "float32"), False, False),
-            ((2, 1, 96, 16, 8, 32), ("bfloat16", "float32"), True, False)):
+            ((2, 2, 128, 16, 16, 32), both, False, False),
+            ((1, 4, 64, 32, 32, 64), both, False, False),
+            ((2, 1, 96, 16, 8, 32), both, True, False),
+            ((2, 2, 1, 16, 16, 128), both, True, True),
+            ((2, 2, 63, 32, 16, 128), both, False, True),
+            ((2, 2, 65, 16, 32, 128), both, True, True),
+            ((2, 2, 1000, 64, 64, 200), both, True, True)):
         for dtype in dtypes:
             dt = getattr(torch, dtype)
             a_log = rand((H,)) * 0.5
             dtv = F.softplus(rand((B, T, H))).transpose(1, 2)
-            if full:
+            if layout:
                 # the model's conv output: x, B and C are column slices
                 xbc = rand((B, T, H * P + 2 * N), dt)
                 x = xbc[..., :H * P].reshape(B, T, H, P).transpose(1, 2)
@@ -1169,14 +1246,15 @@ def recurrent_kernel_checks(out: dict) -> None:
             if init:
                 kw["init_state"] = rand((B, H, P, N))
             label = (f"({B}, {H}, {T}, {P}) N={N}" + (" model layout"
-                                                       if full else "")
+                                                       if layout else "")
                      + (" initial state" if init else ""))
             cases.append(_recurrent_case(
                 label, dtype, k7.ssd_forward, k7.ssd_forward_plain,
                 (x, dtv, a_log, Bm, Cm), kw,
                 k7.ssd_bound_ms(B, H, T, P, N, itemsize=x.element_size(),
                                 bc_itemsize=Bm.element_size(),
-                                init_state=init), long_run=full))
+                                init_state=init), long_run=T >= 1000,
+                phases=T == SERVE_PROMPT))
     merge_cases(out, "ssd", cases)
 
     # zamba2-2.7b's shared attention: 32 heads of 80, no grouping

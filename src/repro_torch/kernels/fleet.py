@@ -103,9 +103,9 @@ _SOURCES = ("latency_scale", "row_draw", "poisson", "flash_attention",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: sources built with unfused multiply-adds: K1-K3's bit-exactness to
-#: JAX's threefry and latency scale rests on it, and K6/K7 were held to
-#: their plain versions so; the attention kernels fuse freely
-_NO_FMAD = ("latency_scale", "row_draw", "poisson", "rwkv6", "ssd")
+#: JAX's threefry and latency scale rests on it; the attention and the
+#: recurrent kernels (held to their plain versions run in f64) fuse freely
+_NO_FMAD = ("latency_scale", "row_draw", "poisson")
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -131,9 +131,9 @@ _ARGTYPES = {
                             _INT, _INT, _INT, _P, ctypes.c_float, _INT, _P,
                             _P, _P],
     "rwkv6_fwd": [_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT,
-                  _INT, _P, _P],
+                  _INT, _P, _P, _P],
     "ssd_fwd": [_INT, _P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, _INT,
-                _INT, _INT, _P, _P],
+                _INT, _INT, _P, _P, _P],
 }
 _ENTRY = {"latency_scale": "latency_scale_f32", "row_draw": "row_draw_f32",
           "poisson": "poisson_i32", "flash_attention": "flash_attention_fwd",

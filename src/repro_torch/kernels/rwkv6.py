@@ -3,10 +3,18 @@
 ========== ================================= ============================
 kernel     replaces (JAX package)            bound on an H100
 ========== ================================= ============================
-K6 rwkv6   ``rwkv6._kernel`` /               operations: 5·K² f32 FLOPs
-           ``rwkv6_forward`` (Pallas,        per (step, head); the serial
-           kernels/rwkv6.py)                 steps are what holds it back
+K6 rwkv6   ``rwkv6._kernel`` /               bytes (r, k, v, w read and o
+           ``rwkv6_forward`` (Pallas,        written once); the quicker
+           kernels/rwkv6.py)                 of the recurrence and the
+                                             chunked form comes below
 ========== ================================= ============================
+
+The kernel runs in parallel over chunks of ``CHUNK`` steps: each
+chunk's state update from zero as one product (on the tensor cores for
+bf16 inputs, as f32 FMAs for f32), a sequential pass of the (K, K) state
+over the chunks, then the recurrence over every chunk at once from its
+start state — three launches in one call with an f32 scratch the
+wrapper allocates.
 
 Per head, with the (K, K) f32 state S and data-dependent decay w_t:
 ``o_t = r_t·(S + diag(u)·k_t v_tᵀ)``, ``S ← diag(w_t)·S + k_t v_tᵀ``.
@@ -31,11 +39,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import fleet
-from repro_torch.kernels.attention import (_DTYPE_CODE, F32_FLOPS_PER_S,
+from repro_torch.kernels.attention import (_DTYPE_CODE, BF16_FLOPS_PER_S,
+                                           F32_FLOPS_PER_S,
                                            _check_vector_rows, _on_cuda,
                                            _strides)
 
 HEAD_SIZES = (16, 32, 64)
+#: the kernel's chunk: its phases run in parallel over chunks of this many
+#: steps, and only the state hand-off between them is sequential
+CHUNK = 64
 
 
 def rwkv6_forward_plain(r, k, v, w, u, init_state=None):
@@ -92,11 +104,17 @@ def rwkv6_forward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, T, H, K), dtype=r.dtype,
                     device=r.device).transpose(1, 2)
     s_out = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    # the chunks' state updates (then their start states) and decays,
+    # for the kernel's three phases
+    nc = -(-T // CHUNK)
+    scratch = torch.empty(B * H * nc * (K * K + K), dtype=torch.float32,
+                          device=r.device)
     strides = _strides(r, k, v, w, o)    # alive until the launch returns
     fleet._launch("rwkv6", _DTYPE_CODE[r.dtype], K, r.data_ptr(),
                   k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                   None if s0 is None else s0.data_ptr(), o.data_ptr(),
-                  s_out.data_ptr(), B, H, T, ctypes.addressof(strides))
+                  s_out.data_ptr(), B, H, T, scratch.data_ptr(),
+                  ctypes.addressof(strides))
     return o, s_out
 
 
@@ -104,11 +122,18 @@ def rwkv6_bound_ms(B: int, H: int, T: int, K: int, *, itemsize: int = 2,
                    init_state: bool = False) -> tuple[float, str]:
     """Least time for one call: r, k, v and w read and o written once
     (w in f32), u read, the final state written (and the initial one
-    read); 5·K² f32 FLOPs per (step, head) — r·S, the bonus term, and
-    the decay update w·S + k·v — at the f32 rate (the state is f32)."""
+    read); the operations of the quicker of the function's two forms:
+    the recurrence, 5·K² f32 FLOPs per (step, head) — r·S, the bonus
+    term, and the decay update w·S + k·v — at the f32 rate (the state is
+    f32), or the chunked form, 4·L·K + 4·K² per (step, head) at chunk
+    L = min(CHUNK, T), on bf16 tensor cores for bf16 inputs (for f32
+    inputs at the f32 rate)."""
     bytes_ = (B * H * T * K * (4 * itemsize + 4) + 4 * H * K
               + 4 * B * H * K * K * (2 if init_state else 1))
-    flops = 5 * K * K * B * H * T
-    t_bytes, t_ops = bytes_ / fleet.HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    L = min(CHUNK, T)
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    t_ops = min(5 * K * K * B * H * T / F32_FLOPS_PER_S,
+                (4 * L * K + 4 * K * K) * B * H * T / rate)
+    t_bytes = bytes_ / fleet.HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")

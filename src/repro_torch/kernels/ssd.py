@@ -11,6 +11,12 @@ K7 ssd     ``ssd._kernel`` / ``ssd_forward`` bf16: bytes (x read and
                                              step at the f32 rate
 ========== ================================= ============================
 
+The kernel runs in parallel over chunks of 64 steps: chunk summaries,
+a sequential pass of the (P, N) state over the chunks, then each chunk's
+output, three launches in one call with an f32 scratch the wrapper
+allocates. On bf16 inputs its products run on the tensor cores with
+TF32 operands; on f32 inputs as f32 FMAs.
+
 Per head h (P channels, N state), with a = -exp(a_log[h]):
 ``S_t = exp(dt_t·a)·S_{t-1} + dt_t·x_t ⊗ B_t``, ``y_t = S_t·C_t``, in
 the state-space dual (chunked) form. The CUDA source is
@@ -28,8 +34,8 @@ contiguous), so the model's (B, T, H, P) activations and the B/C
 columns of its conv output pass as views; on CUDA the output is a
 (B, H, T, P) view of a (B, T, H, P) tensor. Both versions keep the
 reference's contract that T is a multiple of ``min(chunk, T)``; the
-kernel walks chunks of its own (64 steps), which does not change the
-function.
+kernel cuts chunks of its own (``KERNEL_CHUNK`` steps), which does not
+change the function.
 """
 from __future__ import annotations
 
@@ -43,6 +49,9 @@ from repro_torch.kernels.attention import (BF16_FLOPS_PER_S,
                                            _strides)
 
 CHUNK = 128
+#: the kernel's own chunk: its phases run in parallel over chunks of this
+#: many steps, and only the state hand-off between them is sequential
+KERNEL_CHUNK = 64
 #: largest state/channel widths whose chunk fits the 227 KiB of shared
 #: memory a block can opt into
 MAX_WIDTH = 128
@@ -145,13 +154,19 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y = torch.empty((B, T, H, P), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     s_out = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # the chunk summaries, then each chunk's start state, and the chunks'
+    # decays, for the kernel's three phases
+    nc = -(-T // KERNEL_CHUNK)
+    scratch = torch.empty(B * H * nc * (P * N + 1), dtype=torch.float32,
+                          device=x.device)
     strides = (ctypes.c_longlong * 13)(
         *_strides(x, dt), *[int(s) for t in (Bm, Cm) for s in t.stride()[:2]],
         *_strides(y))                    # alive until the launch returns
     fleet._launch("ssd", code, x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
                   Bm.data_ptr(), Cm.data_ptr(),
                   None if s0 is None else s0.data_ptr(), y.data_ptr(),
-                  s_out.data_ptr(), B, H, T, P, N, ctypes.addressof(strides))
+                  s_out.data_ptr(), B, H, T, P, N, scratch.data_ptr(),
+                  ctypes.addressof(strides))
     return y, s_out
 
 
