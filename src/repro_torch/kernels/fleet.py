@@ -9,18 +9,19 @@ kernel     replaces (JAX package)         bound on an H100
 ========== ============================== ===================================
 K1         ``_scale_kernel`` /            bytes: one f32 read and one f32
 latency_   ``_pallas_latency_scale``      write per (tenant, second) cell
-scale      (Pallas, jax_backend.py)
-K2         ``_dense_impl``,               integer ALU: ~74 int32 ops a cell
-row_draw   ``_fused_impl``,               for the 20 threefry rounds
-           ``_jitter_impl`` (jit bodies)
+scale      (Pallas, jax_backend.py)       (then the division and powf)
+K2         ``_dense_impl``,               issue rate: ~74 int32 ops a cell
+row_draw   ``_fused_impl``,               for the 20 threefry rounds, 31
+           ``_jitter_impl`` (jit bodies)  float ones
 K3         ``_poisson_impl``              integer ALU (threefry) and the
 poisson    (jax.random.poisson)           f64 inversion search, ~lam steps
 ========== ============================== ===================================
 
 Every wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises (no fallback). Each
-launch adds one to :data:`LAUNCHES`, so a run can show that it went
-through the kernels.
+launch adds one to :data:`LAUNCHES` (and K2's to its mode in
+:data:`ROW_DRAW_MODES`), so a run can show that it went through the
+kernels.
 
 The build and launch machinery here (nvcc at first use, ctypes, the
 launch counts) also serves the attention kernels K4 and K5 of
@@ -43,6 +44,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +52,9 @@ import torch
 LAUNCHES = {"latency_scale": 0, "row_draw": 0, "poisson": 0,
             "flash_attention": 0, "paged_attention": 0, "rwkv6": 0,
             "ssd": 0}
+#: K2's launches by mode, and by mode and "rows x cols" shape
+ROW_DRAW_MODES = {"dense": 0, "fused": 0, "jitter": 0}
+ROW_DRAW_SHAPES: dict[str, dict[str, int]] = {m: {} for m in ROW_DRAW_MODES}
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -80,6 +85,13 @@ F64_OPS_PER_S = 34e12 / 2
 #: expf are counted at their inlined instruction length)
 THREEFRY_INT_OPS = 74
 ROW_DRAW_F32_OPS = 31
+#: K1 a cell, the instructions of its common path in the kernel's SASS
+#: (``cuobjdump -sass``): the IEEE f32 division (reciprocal, five FFMA,
+#: the range check, its branch and reconvergence: 10), max, compare,
+#: branch and reconvergence (6), the product (1); powf's inlined path on
+#: the cells where rho > 1 (78)
+LATENCY_SCALE_F32_OPS = 17
+POWF_F32_OPS = 78
 POISSON_F64_OPS_PER_STEP = 13
 POISSON_F64_OPS_SETUP = 25
 
@@ -123,7 +135,7 @@ _ARGTYPES = {
     "latency_scale_f32": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "row_draw_f32": [ctypes.c_int, _P, _P, ctypes.c_uint, _P, _P, _P, _P,
                      _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float,
-                     ctypes.c_float, _P],
+                     ctypes.c_float, _INT, _INT, _I64, _INT, _INT, _P],
     "poisson_i32": [_P, _P, ctypes.c_uint, _P, _P, _I64, _I64, _P],
     "flash_attention_fwd": [_INT, _INT, _P, _P, _P, _P, _INT, _INT, _INT,
                             _INT, _INT, _P, _INT, _INT, ctypes.c_float, _P],
@@ -227,6 +239,9 @@ def _launch(name: str, *args) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for m in ROW_DRAW_MODES:
+        ROW_DRAW_MODES[m] = 0
+        ROW_DRAW_SHAPES[m].clear()
 
 
 def _on_cuda(*tensors) -> bool:
@@ -324,9 +339,24 @@ def latency_scale(base_pf: torch.Tensor, alpha: torch.Tensor,
     return out
 
 
-def latency_scale_bound_ms(T: int, W: int) -> tuple[float, str]:
-    bytes_ = 4 * (2 * T * W + 3 * T)
-    return 1e3 * bytes_ / HBM_BYTES_PER_S, "bytes"
+def latency_scale_bound_terms(T: int, W: int, pow_cells: int
+                              ) -> tuple[float, float]:
+    """K1's two least times for one (T, W) call, in ms: its bytes over
+    the HBM rate and its f32 operations over the issue rate, with
+    ``pow_cells`` of the cells (those with rho > 1 in this call's data)
+    running powf."""
+    t_bytes = 4 * (2 * T * W + 3 * T) / HBM_BYTES_PER_S
+    t_ops = (T * W * LATENCY_SCALE_F32_OPS
+             + pow_cells * POWF_F32_OPS) / LANE_OPS_PER_S
+    return 1e3 * t_bytes, 1e3 * t_ops
+
+
+def latency_scale_bound_ms(T: int, W: int, pow_cells: int
+                           ) -> tuple[float, str]:
+    """Least time for one (T, W) call: the larger of the two terms."""
+    t_bytes, t_ops = latency_scale_bound_terms(T, W, pow_cells)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 # ----------------------------------------------------------- K2 row draw
@@ -346,12 +376,36 @@ def row_draw_plain(mode, k0, k1, chunk_word, cols, scale=None, sigma=None,
     return lat, viol, lat_sum, viol.sum(dim=1, dtype=torch.int32)
 
 
+class RowDrawLayout(NamedTuple):
+    """How K2 lays rows out on the card. Rows of at most ``short_max``
+    columns take one warp each, ``short_warps`` rows a CTA and
+    ``short_v`` consecutive columns a lane, on a persistent grid; longer
+    rows take a CTA of ``wide_warps`` warps each and ``wide_v`` columns
+    a thread. V is 2 or 4; a CTA has at most 16 warps."""
+    short_v: int = 4
+    short_warps: int = 4
+    short_max: int = 512
+    wide_v: int = 4
+    wide_warps: int = 4
+
+    def check(self) -> None:
+        if self.short_v not in (2, 4) or self.wide_v not in (2, 4):
+            raise ValueError(f"row_draw layout {self}: V is 2 or 4")
+        if not (1 <= self.short_warps <= 16 and 1 <= self.wide_warps <= 16):
+            raise ValueError(f"row_draw layout {self}: 1 to 16 warps a CTA")
+
+
+#: the layout the sweep in chip_smoke.py's kernels phase found fastest
+ROW_DRAW_LAYOUT = RowDrawLayout()
+
+
 def row_draw(mode: str, k0: torch.Tensor, k1: torch.Tensor,
              chunk_word: int, *, cols: int | None = None,
              sigma: torch.Tensor, scale: torch.Tensor | None = None,
              slo: torch.Tensor | None = None,
              active: torch.Tensor | None = None,
-             totals: torch.Tensor | None = None):
+             totals: torch.Tensor | None = None,
+             layout: RowDrawLayout = ROW_DRAW_LAYOUT):
     """K2: per row, ``cols`` N(0,1) draws from the row's threefry key
     ``(k0, k1 ^ chunk_word)`` at counters ``(0, col)``.
 
@@ -362,9 +416,11 @@ def row_draw(mode: str, k0: torch.Tensor, k1: torch.Tensor,
     Dense and fused return ``(lat, viol, lat_sum, viol_count)``:
     ``lat = scale·exp(sigma·z)`` f32, ``viol = mask & (lat > slo)``, the
     masked f32 row sum and the int32 row count. ``k0``/``k1`` are int32
-    tensors holding the unsigned key words."""
+    tensors holding the unsigned key words. ``layout`` changes only how
+    the kernel spreads the work and the order of the row sums."""
     if mode not in _MODES:
         raise ValueError(f"row_draw mode {mode!r} not in {tuple(_MODES)}")
+    layout.check()
     rows = k0.shape[0]
     if mode == "dense":
         cols = active.shape[1]
@@ -391,7 +447,10 @@ def row_draw(mode: str, k0: torch.Tensor, k1: torch.Tensor,
     _launch("row_draw", _MODES[mode], _ptr(k0), _ptr(k1),
             int(chunk_word) & _M32, _ptr(active), _ptr(totals), _ptr(scale),
             _ptr(sigma), _ptr(slo), _ptr(lat), _ptr(viol), _ptr(lat_sum),
-            _ptr(count), rows, cols, float(_LO), float(_SPAN))
+            _ptr(count), rows, cols, float(_LO), float(_SPAN), *layout)
+    ROW_DRAW_MODES[mode] += 1
+    shapes = ROW_DRAW_SHAPES[mode]
+    shapes[f"{rows}x{cols}"] = shapes.get(f"{rows}x{cols}", 0) + 1
     if mode == "jitter":
         return lat
     return lat, viol, lat_sum, count

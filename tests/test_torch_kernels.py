@@ -212,6 +212,135 @@ def test_poisson_zero_rate_and_branches():
     assert bool((out[:, 1:] > 40).all())
 
 
+# ------------------------------------------------- K2 layout (CPU side)
+def _tree(a):
+    """Lane 0's value after five ``__shfl_down_sync`` steps over a
+    (rows, 32) f32 tensor."""
+    for o in (16, 8, 4, 2, 1):
+        a = a[:, :o] + a[:, o:2 * o]
+    return a[:, 0]
+
+
+def _emulated_row_sums(lat, mask, layout=fleet.ROW_DRAW_LAYOUT):
+    """K2's f32 order for the masked row sums: each lane of a short
+    row's warp (each thread of a wide row's CTA) adds its V consecutive
+    cells in column order, pass after pass; then the shuffle tree, and
+    for a wide row one more tree over the warps' sums."""
+    rows, cols = lat.shape
+    wide = cols > layout.short_max
+    v = layout.wide_v if wide else layout.short_v
+    threads = 32 * (layout.wide_warps if wide else 1)
+    passes = -(-cols // (threads * v))
+    cells = torch.zeros((rows, passes * threads * v), dtype=torch.float32,
+                        device=lat.device)
+    cells[:, :cols] = torch.where(mask, lat, torch.zeros_like(lat))
+    cells = cells.view(rows, passes, threads, v)
+    acc = torch.zeros((rows, threads), dtype=torch.float32, device=lat.device)
+    for p in range(passes):
+        for j in range(v):
+            acc = acc + cells[:, p, :, j]
+    warps = torch.stack([_tree(acc[:, 32 * w:32 * w + 32])
+                         for w in range(threads // 32)], dim=1)
+    if not wide:
+        return warps[:, 0]
+    lanes = torch.zeros((rows, 32), dtype=torch.float32, device=lat.device)
+    lanes[:, :warps.shape[1]] = warps
+    return _tree(lanes)
+
+
+def _plain_draw(mode, seed, rows, cols, device="cpu"):
+    """Inputs for K2 on ``device`` and the plain version's outputs."""
+    rng, _, k0, k1, scale, sigma, slo = _draw_inputs(seed, rows, cols)
+    kw = dict(sigma=_t(sigma, np.float32).to(device),
+              scale=_t(scale, np.float32).to(device),
+              slo=_t(slo, np.float32).to(device))
+    if mode == "dense":
+        kw["active"] = torch.from_numpy(rng.random((rows, cols)) < 0.6
+                                        ).to(device)
+    elif mode == "fused":
+        kw["totals"] = _t(rng.integers(0, cols + 1, rows), np.int32
+                          ).to(device)
+    else:
+        del kw["scale"], kw["slo"]
+    k0, k1 = k0.to(device), k1.to(device)
+    ref = fleet.row_draw_plain(mode, k0, k1, 21, cols, kw.get("scale"),
+                               kw["sigma"], kw.get("slo"), kw.get("active"),
+                               kw.get("totals"))
+    return k0, k1, kw, ref
+
+
+def _mask(mode, kw, cols):
+    if mode == "dense":
+        return kw["active"]
+    ar = torch.arange(cols, device=kw["totals"].device)
+    return ar[None, :] < kw["totals"][:, None]
+
+
+@pytest.mark.parametrize("mode,rows,cols,v", [
+    ("dense", 64, 120, 4), ("dense", 64, 120, 2), ("dense", 33, 509, 4),
+    ("fused", 12, 6848, 4), ("fused", 12, 6848, 2), ("fused", 9, 1000, 4)])
+def test_row_draw_sum_order_matches_plain(mode, rows, cols, v):
+    """The kernel's order of the row sums (lane partials of V cells, the
+    shuffle tree, for wide rows the tree over the warps) stays within
+    1e-5 of the plain version's torch.sum."""
+    layout = fleet.ROW_DRAW_LAYOUT._replace(short_v=v, wide_v=v)
+    _, _, kw, ref = _plain_draw(mode, 30 + rows, rows, cols)
+    lat, _, lat_sum, _ = ref
+    got = _emulated_row_sums(lat, _mask(mode, kw, cols), layout)
+    assert got.dtype == torch.float32 and got.shape == (rows,)
+    torch.testing.assert_close(got, lat_sum, rtol=1e-5, atol=0)
+
+
+def test_row_draw_odd_cols_and_sliced_active():
+    rng, keys, k0, k1, scale, sigma, slo = _draw_inputs(12, 9, 121)
+    active = torch.from_numpy(rng.random((9, 121)) < 0.5)
+    kw = dict(sigma=_t(sigma, np.float32)[1:], scale=_t(scale, np.float32)[1:],
+              slo=_t(slo, np.float32)[1:])
+    lat, viol, lat_sum, cnt = fleet.row_draw("dense", k0[1:], k1[1:], 5,
+                                             active=active[1:], **kw)
+    assert lat.shape == viol.shape == (8, 121)
+    assert lat.dtype == torch.float32 and viol.dtype == torch.bool
+    assert lat_sum.shape == cnt.shape == (8,) and cnt.dtype == torch.int32
+    full = fleet.row_draw("dense", k0, k1, 5, active=active,
+                          sigma=_t(sigma, np.float32),
+                          scale=_t(scale, np.float32),
+                          slo=_t(slo, np.float32))
+    for x, y in zip((lat, viol, lat_sum, cnt), full):
+        assert torch.equal(x, y[1:])
+    with pytest.raises(ValueError, match="active"):
+        fleet.row_draw("dense", k0[1:], k1[1:], 5,
+                       active=active[1:].to(torch.uint8), **kw)
+    with pytest.raises(ValueError, match="active"):
+        fleet.row_draw("dense", k0[1:], k1[1:], 5, active=active[2:], **kw)
+    with pytest.raises(ValueError, match="totals"):
+        fleet.row_draw("fused", k0[1:], k1[1:], 5, cols=121,
+                       totals=_t(np.zeros(8), np.int64), **kw)
+
+
+def test_row_draw_layout_is_checked():
+    _, _, k0, k1, _, sigma, _ = _draw_inputs(13, 4, 8)
+    for bad in (dict(short_v=3), dict(wide_v=1), dict(short_warps=0),
+                dict(wide_warps=17)):
+        with pytest.raises(ValueError, match="layout"):
+            fleet.row_draw("jitter", k0, k1, 0, cols=8,
+                           sigma=_t(sigma, np.float32),
+                           layout=fleet.RowDrawLayout(**bad))
+
+
+def test_latency_scale_bound_counts_bytes_and_operations():
+    bytes_ms = 1e3 * 4 * (2 * 1.2e6 + 3e4) / 3.35e12
+    ms, by = fleet.latency_scale_bound_ms(10_000, 120, pow_cells=0)
+    assert by == "bytes" and ms == pytest.approx(bytes_ms)
+    # the game fleet's chunk: about 30 % of the cells run powf
+    ms, by = fleet.latency_scale_bound_ms(10_000, 120, pow_cells=360_000)
+    assert by == "bytes" and ms == pytest.approx(bytes_ms)
+    ms, by = fleet.latency_scale_bound_ms(10_000, 120, pow_cells=1_200_000)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 1.2e6 * (
+        fleet.LATENCY_SCALE_F32_OPS + fleet.POWF_F32_OPS)
+        / fleet.LANE_OPS_PER_S)
+
+
 # ---------------------------------------------------------------- CUDA
 @pytest.fixture
 def cuda_device():
@@ -221,25 +350,120 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _assert_draw_equal(mode, got, ref, kw, cols, layout):
+    """lat/viol bit for bit, exact counts, row sums within 1e-5 of the
+    plain version and equal to the kernel's own order emulated."""
+    if mode == "jitter":
+        assert torch.equal(got, ref)
+        return
+    lat, viol, lat_sum, cnt = got
+    assert torch.equal(lat, ref[0]) and torch.equal(viol, ref[1])
+    assert torch.equal(cnt, ref[3])
+    torch.testing.assert_close(lat_sum, ref[2], rtol=1e-5, atol=0)
+    assert torch.equal(lat_sum, _emulated_row_sums(
+        ref[0], _mask(mode, kw, cols), layout))
+
+
+def _sliced(k0, k1, kw):
+    """The same inputs one row in: every base pointer moves one row."""
+    return k0[1:], k1[1:], {k: v[1:] for k, v in kw.items()}
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions(cuda_device):
+@pytest.mark.parametrize("mode", ["dense", "fused", "jitter"])
+@pytest.mark.parametrize("cols", [1, 3, 4, 64, 120, 127, 128, 129, 255, 256,
+                                  257, 6848])
+def test_cuda_row_draw_matches_plain(cuda_device, mode, cols):
+    layout = fleet.ROW_DRAW_LAYOUT
+    for rows in (1, 7, 8, 9, 500):
+        k0, k1, kw, ref = _plain_draw(mode, rows + cols, rows, cols,
+                                      cuda_device)
+        got = fleet.row_draw(mode, k0, k1, 21, cols=cols, **kw)
+        _assert_draw_equal(mode, got, ref, kw, cols, layout)
+        if rows == 1:
+            continue
+        # row slices: active starts cols bytes in, k0/k1/... one word in
+        k0s, k1s, kws = _sliced(k0, k1, kw)
+        got = fleet.row_draw(mode, k0s, k1s, 21, cols=cols, **kws)
+        refs = (ref[1:] if mode == "jitter" else tuple(x[1:] for x in ref))
+        _assert_draw_equal(mode, got, refs, kws, cols, layout)
+    if mode == "dense":
+        # active one byte off a word: the scalar path on any cols
+        rows = 9
+        k0, k1, kw, ref = _plain_draw(mode, 99 + cols, rows, cols,
+                                      cuda_device)
+        buf = torch.zeros(rows * cols + 1, dtype=torch.bool,
+                          device=cuda_device)
+        buf[1:] = kw["active"].reshape(-1)
+        kw["active"] = buf[1:].view(rows, cols)
+        got = fleet.row_draw(mode, k0, k1, 21, **kw)
+        _assert_draw_equal(mode, got, ref, kw, cols, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [
+    fleet.RowDrawLayout(short_v=v, short_warps=w, wide_v=v, wide_warps=w)
+    for v in (2, 4) for w in (4, 8, 16)] + [
+    fleet.RowDrawLayout(short_max=0), fleet.RowDrawLayout(short_max=1 << 20)],
+    ids=lambda lay: "-".join(map(str, lay)))
+def test_cuda_row_draw_layouts_match_plain(cuda_device, layout):
+    """Every layout the sweep times gives the same outputs."""
+    for mode in ("dense", "fused", "jitter"):
+        for rows, cols in ((37, 120), (9, 130), (5, 6848)):
+            k0, k1, kw, ref = _plain_draw(mode, rows, rows, cols,
+                                          cuda_device)
+            got = fleet.row_draw(mode, k0, k1, 21, cols=cols,
+                                 layout=layout, **kw)
+            _assert_draw_equal(mode, got, ref, kw, cols, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3, 120, 121])
+def test_cuda_latency_scale_matches_plain(cuda_device, W):
+    rng = np.random.default_rng(W)
+    T = 37
+    capacity = rng.uniform(5.0, 50.0, T)
+    # rho on both sides of 1
+    demand = capacity[:, None] * rng.uniform(0.3, 2.5, (T, W))
+    a = [_t(x, np.float32).to(cuda_device) for x in
+         (rng.uniform(0.01, 0.2, T), rng.uniform(0.5, 2.5, T), demand,
+          capacity)]
+    got = fleet.latency_scale(*a)
+    assert torch.equal(got, fleet.latency_scale_plain(*a))
+    rho = a[2] / a[3][:, None]
+    assert bool((rho > 1).any()) and bool((rho <= 1).any())
+    # demand one float off 16 bytes: the scalar path
+    buf = torch.zeros(T * W + 1, device=cuda_device)
+    buf[1:] = a[2].reshape(-1)
+    a[2] = buf[1:].view(T, W)
+    assert torch.equal(fleet.latency_scale(*a),
+                       fleet.latency_scale_plain(*a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dense", "poisson", "latency_scale"])
+def test_cuda_kernels_match_plain_versions(cuda_device, kernel):
     rng, keys, k0, k1, scale, sigma, slo = _draw_inputs(8, 500, 120)
     d = cuda_device
-    args = [_t(x, np.float32).to(d) for x in
-            (scale, sigma, slo)]
-    active = torch.from_numpy(rng.random((500, 120)) < 0.5).to(d)
     k0d, k1d = k0.to(d), k1.to(d)
-    got = fleet.row_draw("dense", k0d, k1d, 11, scale=args[0],
-                         sigma=args[1], slo=args[2], active=active)
-    ref = fleet.row_draw_plain("dense", k0d, k1d, 11, 120, args[0],
-                               args[1], args[2], active, None)
-    torch.testing.assert_close(got[0], ref[0], rtol=LAT_RTOL, atol=0)
-    lam = _t(rng.uniform(0.0, 160.0, (500, 120)), np.float32).to(d)
-    assert torch.equal(fleet.poisson(k0d, k1d, 3, lam),
-                       fleet.poisson_plain(k0d, k1d, 3, lam))
-    fb, _, demand, capacity = _game_batch()
-    a = [_t(x, np.float32).to(d) for x in
-         (fb.base_pf, fb.alpha, demand, capacity)]
-    torch.testing.assert_close(fleet.latency_scale(*a),
-                               fleet.latency_scale_plain(*a), rtol=1e-6,
-                               atol=0)
+    if kernel == "dense":
+        args = [_t(x, np.float32).to(d) for x in (scale, sigma, slo)]
+        active = torch.from_numpy(rng.random((500, 120)) < 0.5).to(d)
+        got = fleet.row_draw("dense", k0d, k1d, 11, scale=args[0],
+                             sigma=args[1], slo=args[2], active=active)
+        ref = fleet.row_draw_plain("dense", k0d, k1d, 11, 120, args[0],
+                                   args[1], args[2], active, None)
+        for x, y in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+            assert torch.equal(x, y)
+        torch.testing.assert_close(got[2], ref[2], rtol=1e-5, atol=0)
+    elif kernel == "poisson":
+        lam = _t(rng.uniform(0.0, 160.0, (500, 120)), np.float32).to(d)
+        assert torch.equal(fleet.poisson(k0d, k1d, 3, lam),
+                           fleet.poisson_plain(k0d, k1d, 3, lam))
+    else:
+        fb, _, demand, capacity = _game_batch()
+        a = [_t(x, np.float32).to(d) for x in
+             (fb.base_pf, fb.alpha, demand, capacity)]
+        torch.testing.assert_close(fleet.latency_scale(*a),
+                                   fleet.latency_scale_plain(*a), rtol=1e-6,
+                                   atol=0)
