@@ -218,12 +218,161 @@ def phase_env(fleet) -> dict:
                 f"{f['spill_loads']} B, stack {f['stack']} B"
                 + (", wgmma SERIALIZED" if f["wgmma_serialized"] else ""))
     # the fleet kernels are issue-bound: a spill is instructions and
-    # local-memory traffic in every cell
+    # local-memory traffic in every cell; a kernel whose own spill line
+    # was not read counts as a failure, not as a kernel that does not
+    # spill
     spills = [f"{name} {f['function']}" for name in FLEET_KERNELS
               for f in ptxas[name] if f["spill_stores"] or f["spill_loads"]]
+    unread = [f"{name} {f['function']}" for name in FLEET_KERNELS
+              for f in ptxas[name]
+              if f["spill_stores"] is None or f["spill_loads"] is None]
+    unread += [name for name in FLEET_KERNELS if not ptxas[name]]
     if spills:
         log(f"[ptxas] fleet kernels that spill: {', '.join(spills)}")
-    return {"build_s": secs, "ptxas": ptxas, "fleet_spills": spills}
+    if unread:
+        log(f"[ptxas] fleet kernels without a spill line: "
+            f"{', '.join(unread)}")
+    sass = poisson_sass(fleet)
+    failures = ([f"{f} spills" for f in spills]
+                + [f"{f} has no spill line in the ptxas log" for f in unread]
+                + ([] if sass.get("ok") else
+                   [f"poisson SASS counts: {sass.get('why')}"]))
+    return {"build_s": secs, "ptxas": ptxas, "fleet_spills": spills,
+            "sass": sass, "failures": failures}
+
+
+#: SASS opcodes by the pipe that executes them (sm_90): the f64 pipe,
+#: the integer ALU pipe, the FMA pipe, the transcendental/conversion
+#: unit, memory, control; the rest (shuffles, votes, moves to and from
+#: the uniform datapath) count as "other"
+SASS_PIPES = {
+    "f64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"),
+    "alu": ("LOP3", "LOP", "SHF", "IADD3", "ISETP", "SEL", "FSEL", "LEA",
+            "PRMT", "IABS", "IMNMX", "FSETP", "FMNMX", "PLOP3", "P2R", "R2P",
+            "FLO", "POPC", "BREV", "MOV", "SGXT", "BMSK", "VIADD", "VIMNMX"),
+    "fma": ("IMAD", "FFMA", "FADD", "FMUL", "HFMA2", "IMUL", "FCHK"),
+    "xu": ("MUFU", "I2F", "F2I", "F2F", "FRND", "I2FP", "F2IP"),
+    "mem": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL", "ATOMG",
+            "ATOM", "ATOMS", "RED", "LDC"),
+    "ctl": ("BRA", "BSSY", "BSYNC", "EXIT", "RET", "CALL", "WARPSYNC",
+            "NOP", "BAR", "YIELD", "JMP", "BRX"),
+}
+
+
+def sass_blocks(text: str) -> dict:
+    """``cuobjdump -sass`` output cut into basic blocks: for each
+    function, a list of (start address, [(address, instruction)])."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, ins in funcs.items():
+        targets = {int(t, 16) for _, txt in ins
+                   for t in re.findall(r"\b(?:BRA|BSSY|CALL\.\w+|JMP)\b"
+                                       r"[^;]*?0x([0-9a-f]+)", txt)}
+        blocks, block = [], []
+        for addr, txt in ins:
+            if addr in targets and block:
+                blocks.append(block)
+                block = []
+            block.append((addr, txt))
+            # BRA.DIV leaves only for a diverged warp: it does not end
+            # the block that a converged warp runs
+            if (_sass_op(txt) in ("BRA", "EXIT", "RET", "CALL", "JMP", "BRX")
+                    and "BRA.DIV" not in txt):
+                blocks.append(block)
+                block = []
+        if block:
+            blocks.append(block)
+        out[name] = [(b[0][0], b) for b in blocks]
+    return out
+
+
+def _sass_op(txt: str) -> str:
+    """The opcode without predicate and modifiers: ``@!P0 DFMA.RM`` ->
+    DFMA."""
+    words = txt.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def sass_pipes(block) -> dict:
+    """Instructions of a block by pipe (SASS_PIPES), and all of them."""
+    counts = dict.fromkeys(SASS_PIPES, 0)
+    counts["other"] = 0
+    for _, txt in block:
+        op = _sass_op(txt)
+        if op == "NOP":
+            continue
+        pipe = next((k for k, ops in SASS_PIPES.items() if op in ops),
+                    "other")
+        counts[pipe] += 1
+    counts["all"] = sum(counts.values())
+    return counts
+
+
+#: K3's inversion steps between two looks (kSteps in csrc/poisson.cu):
+#: the search block of its SASS holds this many steps
+POISSON_STEPS = 16
+
+
+def poisson_sass(fleet) -> dict:
+    """K3's SASS counted by pipe: the search block (the basic block that
+    ends in the warp's vote, with the most f64 instructions) divided by
+    its steps, and the set-up block (the one that holds threefry's key
+    constant 0x1bd11bda, interleaved with exp). ``ok`` is true only when
+    the (f64, alu) counts equal fleet.POISSON_STEP_OPS and
+    POISSON_SETUP_OPS, the counts of the bound; else ``why`` says what
+    differs or was not found."""
+    name = "poisson"
+    lib = fleet._LIBS.get(name)
+    tool = Path(fleet._nvcc()).with_name("cuobjdump")
+    if lib is None or not tool.exists():
+        why = "no library or no cuobjdump"
+        log(f"[sass] {name}: {why}")
+        return {"ok": False, "why": why}
+    text = subprocess.run([str(tool), "-sass", lib._name],
+                          capture_output=True, text=True).stdout
+    for func, blocks in sass_blocks(text).items():
+        if "poisson_kernel" not in func:
+            continue
+        counts = [(sass_pipes(b), b) for _, b in blocks]
+        loops = [c for c, b in counts if any("VOTE" in t for _, t in b)]
+        setups = [c for c, b in counts
+                  if any("0x1bd11bda" in t for _, t in b)]
+        if not loops or not setups:
+            why = "no search or set-up block found"
+            log(f"[sass] {name}: {why}")
+            return {"ok": False, "why": why}
+        loop = max(loops, key=lambda c: c["f64"])
+        step = {k: v / POISSON_STEPS for k, v in loop.items()}
+        setup = max(setups, key=lambda c: c["all"])
+        total = sass_pipes([i for _, b in blocks for i in b])
+        for what, c in (("search block", loop), ("a step", step),
+                        ("set-up block", setup), ("kernel", total)):
+            log(f"[sass] {name} {what}: "
+                + ", ".join(f"{k} {v:g}" for k, v in c.items() if v))
+        got = ((step["f64"], step["alu"]), (setup["f64"], setup["alu"]))
+        want = (fleet.POISSON_STEP_OPS, fleet.POISSON_SETUP_OPS)
+        ok = got == want
+        why = (f"(f64, alu) a step {got[0]}, a set-up {got[1]}; the bound "
+               f"counts {want[0]}, {want[1]}")
+        log(f"[sass] {name}: {why}: {'ok' if ok else 'FAIL'}")
+        return {"ok": ok, "why": why, "function": func,
+                "search_block": loop, "step": step, "setup_block": setup,
+                "total": total}
+    why = "no poisson_kernel in the SASS"
+    log(f"[sass] {name}: {why}")
+    return {"ok": False, "why": why}
 
 
 def ptxas_report(text: str) -> list:
@@ -250,21 +399,28 @@ def ptxas_report(text: str) -> list:
                  for n, b, f, _ in args]
         return f"{name}<{','.join(names)}>"
 
-    out, cur = [], None
+    out, cur, entry, props = [], None, None, None
     serialized = set(re.findall(r"serialized[^']*'(\w+)'", text))
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = {"function": short(m.group(1)), "registers": None,
+            entry = m.group(1)
+            cur = {"function": short(entry), "registers": None,
                    "spill_stores": None, "spill_loads": None, "stack": None,
-                   "wgmma_serialized": m.group(1) in serialized}
+                   "wgmma_serialized": entry in serialized}
             out.append(cur)
             continue
         if cur is None:
             continue
+        # a kernel's lines name it; those of the device functions it
+        # calls (lgamma's, say) follow and must not overwrite them
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m:
+        if m and props == entry:
             cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
                 int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
@@ -423,6 +579,7 @@ def phase_kernels(fleet) -> dict:
     var_big = float(got_big.double().var())
     bound, by = fleet.poisson_bound_ms(lam.cpu().numpy(),
                                        got.cpu().numpy())
+    rates = poisson_rates(fleet, (gk0, gk1, cha), lam)
     results["poisson"] = dict(
         shape=list(lam.shape),
         max_abs_err=float(max((got - ref).abs().max(),
@@ -433,8 +590,12 @@ def phase_kernels(fleet) -> dict:
         plain_ms=all_kernels_ms(
             lambda: fleet.poisson_plain(gk0, gk1, cha, lam), reps=3),
         bound_ms=bound, bound_by=by,
+        **dict(zip(("bytes_bound_ms", "f64_bound_ms", "alu_bound_ms"),
+                   fleet.poisson_bound_terms(lam.cpu().numpy(),
+                                             got.cpu().numpy()))),
         library_ms=all_kernels_ms(lambda: torch.poisson(lam), reps=20),
-        ok=(mism + mism_big <= 1e-5 * (lam.numel() + lam_big.numel())
+        rates=rates,
+        ok=(mism + mism_big == 0 and all(r["ok"] for r in rates)
             and abs(mean_big - 150.0) < 5 * math.sqrt(150.0 / lam_big.numel())
             and abs(var_big / 150.0 - 1.0) < 0.05))
     for name, r in results.items():
@@ -541,6 +702,34 @@ def row_draw_sweep(fleet, rng, dense, fused, jitter) -> list:
             for w in (4, 8, 16):
                 one("wide V x warps a CTA", mode, keys, kw, ref,
                     base._replace(wide_v=v, wide_warps=w))
+    return out
+
+
+def poisson_rates(fleet, keys, lam) -> list:
+    """K3 on other rates of the same shape: all
+    zero (the set-up and the writes alone), one rate of 25 everywhere
+    (the game fleet's mean) and the game rates with the rows sorted by
+    rate (the spans' order against rows of like rates). Counts are held
+    to the plain version's."""
+    import torch
+
+    rates = {"zero": torch.zeros_like(lam),
+             "lam 25": torch.full_like(lam, 25.0),
+             "game, rows sorted by rate": None}
+    order = lam.mean(dim=1).argsort()
+    out = []
+    for name, r in rates.items():
+        k0, k1, ch = keys
+        if r is None:
+            k0, k1, r = k0[order], k1[order], lam[order]
+        bad = int((fleet.poisson(k0, k1, ch, r)
+                   != fleet.poisson_plain(k0, k1, ch, r)).sum())
+        ms = kernel_times(lambda: fleet.poisson(k0, k1, ch, r),
+                          "poisson_kernel", reps=10)["ms"]
+        out.append({"rates": name, "ms": ms, "mismatches": bad,
+                    "ok": bad == 0})
+        log(f"[kernel] poisson rates {name}: {ms:.4f} ms "
+            f"{'ok' if bad == 0 else f'FAIL {bad} mismatches'}")
     return out
 
 
@@ -1390,7 +1579,7 @@ def main(argv=None) -> int:
 
     failures = []
     if "env" in phases:
-        failures += [f"{f} spills" for f in phase_env(fleet)["fleet_spills"]]
+        failures += phase_env(fleet)["failures"]
     else:
         fleet.build()
     kern = phase_kernels(fleet) if "kernels" in phases else {}

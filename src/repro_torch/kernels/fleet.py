@@ -13,8 +13,9 @@ scale      (Pallas, jax_backend.py)       (then the division and powf)
 K2         ``_dense_impl``,               issue rate: ~74 int32 ops a cell
 row_draw   ``_fused_impl``,               for the 20 threefry rounds, 31
            ``_jitter_impl`` (jit bodies)  float ones
-K3         ``_poisson_impl``              integer ALU (threefry) and the
-poisson    (jax.random.poisson)           f64 inversion search, ~lam steps
+K3         ``_poisson_impl``              f64 pipe: 6 instructions a search
+poisson    (jax.random.poisson)           step, ~lam steps a cell, and 16
+                                          a set-up (u and exp(-lam))
 ========== ============================== ===================================
 
 Every wrapper takes its plain version only for tensors on the CPU; for
@@ -92,8 +93,20 @@ ROW_DRAW_F32_OPS = 31
 #: the cells where rho > 1 (78)
 LATENCY_SCALE_F32_OPS = 17
 POWF_F32_OPS = 78
-POISSON_F64_OPS_PER_STEP = 13
-POISSON_F64_OPS_SETUP = 25
+#: the integer ALU pipe (LOP3, SHF, IADD3, ISETP, ...) takes 16 lanes a
+#: clock on each of an SM's four partitions, half the issue rate
+ALU_OPS_PER_S = LANE_OPS_PER_S / 2
+#: K3, (f64-pipe, ALU-pipe) instructions of a search step and of a cell's
+#: set-up, counted in the SASS of ``poisson_kernel`` (``cuobjdump -sass``;
+#: chip_smoke.py's env phase counts them again and fails where they
+#: differ). A step is the search block's 96 f64 (k + 1, p·lam, the
+#: product by RN(1/k), two FMAs, F + p) and 58 ALU (the compare u > F,
+#: the count, the flag) over its 16 steps; a set-up is the block of
+#: threefry's 20 rounds interleaved with exp(-lam): 16 f64, 53 ALU. The
+#: kernel's other instructions (table loads, moves, votes, branches) are
+#: not the function's work and are not counted.
+POISSON_STEP_OPS = (6, 58 / 16)
+POISSON_SETUP_OPS = (16, 53)
 
 
 # ------------------------------------------------------------- devices
@@ -186,7 +199,8 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
     keyed by a hash of their sources and flags, so a rebuilt tree never
     loads a stale one. ``verbose`` adds ``-Xptxas -v``, prints what the
     assembler reports (registers, spills) and keeps it in
-    :data:`BUILD_LOGS`."""
+    :data:`BUILD_LOGS` and beside the library, where a later verbose
+    build that finds the library reads it again."""
     t0 = time.perf_counter()
     extra = ("-Xptxas", "-v") if verbose else ()
     out_dir = build_dir()
@@ -197,6 +211,8 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
             continue
         path = _lib_path(name, extra)
         if path.exists():
+            if verbose and path.with_suffix(".log").exists():
+                BUILD_LOGS[name] = path.with_suffix(".log").read_text()
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *nvcc_flags(name), *extra, "-I", str(_SRC_DIR),
@@ -213,6 +229,8 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            if verbose:
+                path.with_suffix(".log").write_text(log)
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -544,16 +562,33 @@ def poisson(k0: torch.Tensor, k1: torch.Tensor, chunk_word: int,
     return out
 
 
+def poisson_bound_terms(lam: np.ndarray, counts: np.ndarray
+                        ) -> tuple[float, float, float]:
+    """K3's least times for the draws that produced ``counts`` from
+    ``lam``, in ms: its bytes over the HBM rate, then its f64-pipe and
+    integer-ALU-pipe instructions over their rates. An inversion cell
+    (0 < lam < 100) runs ``count`` search steps after its set-up; a PTRS
+    cell is counted at one set-up (less than it needs); a cell with
+    lam <= 0 costs its write. A step and a set-up cost what the
+    kernel's search and set-up blocks take in its SASS
+    (:data:`POISSON_STEP_OPS`, :data:`POISSON_SETUP_OPS`)."""
+    lam = np.asarray(lam, np.float64)
+    counts = np.asarray(counts, np.float64)
+    inv = (lam > 0) & (lam < POISSON_INVERSION_MAX_LAM)
+    steps = float(counts[inv].sum())
+    setups = float(np.count_nonzero(lam > 0))
+    # lam in, counts out, and the row's two key words
+    t_bytes = (8 * lam.size + 8 * lam.shape[0]) / HBM_BYTES_PER_S
+    f64, alu = (steps * st + setups * su for st, su in
+                zip(POISSON_STEP_OPS, POISSON_SETUP_OPS))
+    return (1e3 * t_bytes, 1e3 * f64 / F64_OPS_PER_S,
+            1e3 * alu / ALU_OPS_PER_S)
+
+
 def poisson_bound_ms(lam: np.ndarray, counts: np.ndarray
                      ) -> tuple[float, str]:
-    """Least time for the draws that produced ``counts`` from ``lam``:
-    the inversion search runs ``count`` steps a cell (what this data
-    needs), each cell needs one threefry block and the f64 set-up."""
-    cells = lam.size
-    steps = float(np.asarray(counts, np.float64).sum())
-    t_bytes = (8 * cells) / HBM_BYTES_PER_S
-    t_ops = max(cells * THREEFRY_INT_OPS / LANE_OPS_PER_S,
-                (cells * POISSON_F64_OPS_SETUP
-                 + steps * POISSON_F64_OPS_PER_STEP) / F64_OPS_PER_S)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least time for one call: the larger of the bytes and the busier
+    pipe's term (:func:`poisson_bound_terms`)."""
+    terms = poisson_bound_terms(lam, counts)
+    ms = max(terms)
+    return ms, ("bytes" if terms[0] >= ms else "operations")

@@ -341,6 +341,85 @@ def test_latency_scale_bound_counts_bytes_and_operations():
         / fleet.LANE_OPS_PER_S)
 
 
+def _fma(a, b, c):
+    """fma(a, b, c) rounded once, as the card's DFMA."""
+    from fractions import Fraction
+
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def test_poisson_reciprocal_division_rounds_as_ieee():
+    """K3's step divides x = p·lam by k as q = RN(x·RN(1/k)), then
+    q + RN(1/k)·(x − k·q) by two FMAs: the correctly rounded x / k for
+    every k its table holds, on random x over the search's range and on
+    the doubles nearest k times a midpoint between two doubles (quotients
+    next to a tie)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(17)
+    for k in range(1, 273):
+        y = 1.0 / k
+        xs = list(np.ldexp(rng.uniform(0.5, 1.0, 24),
+                           rng.integers(-150, 8, 24)))
+        for m, e in zip(rng.integers(2 ** 52, 2 ** 53, 8),
+                        rng.integers(-150, 8, 8)):
+            tie = float(k * Fraction(2 * int(m) + 1, 2 ** 53)
+                        * Fraction(2) ** int(e))
+            xs += [tie, np.nextafter(tie, 0.0), np.nextafter(tie, np.inf)]
+        for x in map(float, xs):
+            q = x * y
+            assert _fma(_fma(-float(k), q, x), y, q) == x / k, (k, x)
+
+
+@pytest.mark.parametrize("case", ["mixed", "zero", "game"])
+def test_poisson_bound_counts_bytes_and_pipes(case):
+    """The terms follow the SASS counts: an inversion cell costs a
+    set-up and one step a unit of its count, a PTRS cell one set-up, a
+    zero-rate cell only its bytes; the bound is the largest term."""
+    rng = np.random.default_rng(5)
+    if case == "mixed":
+        lam = np.array([[0.0, 2.0, 50.0], [150.0, 0.0, 7.0]], np.float32)
+        counts = np.array([[0, 3, 40], [151, 0, 9]], np.int32)
+        steps, setups = 3 + 40 + 9, 4
+    elif case == "zero":
+        lam = np.zeros((4, 8), np.float32)
+        counts = np.zeros((4, 8), np.int32)
+        steps, setups = 0, 0
+    else:
+        lam = rng.uniform(0.5, 54.0, (100, 120)).astype(np.float32)
+        counts = rng.poisson(lam)
+        steps, setups = int(counts.sum()), lam.size
+    terms = fleet.poisson_bound_terms(lam, counts)
+    assert len(terms) == 3
+    t_bytes, t_f64, t_alu = terms
+    assert t_bytes == pytest.approx(
+        1e3 * (8 * lam.size + 8 * lam.shape[0]) / 3.35e12)
+    for t, rate, i in ((t_f64, fleet.F64_OPS_PER_S, 0),
+                       (t_alu, fleet.ALU_OPS_PER_S, 1)):
+        assert t == pytest.approx(1e3 * (
+            steps * fleet.POISSON_STEP_OPS[i]
+            + setups * fleet.POISSON_SETUP_OPS[i]) / rate)
+    ms, by = fleet.poisson_bound_ms(lam, counts)
+    assert ms == max(terms)
+    # no draws: only the bytes are left; the game fleet's rates: the
+    # search's f64 steps dominate the threefry rounds
+    assert by == ("bytes" if case == "zero" else "operations")
+    if case == "game":
+        assert ms == t_f64
+
+
+@pytest.mark.parametrize("bad", [-1.0, -1e30, float("-inf"), float("nan")])
+def test_poisson_negative_and_nan_rates_draw_zero(bad):
+    """A rate below 0 or NaN draws 0, as a rate of 0 does, beside cells
+    that draw in both branches."""
+    _, k0, k1 = _keys(np.random.default_rng(10), 3)
+    lam = _t([[bad, 5.0, bad, 120.0]] * 3, np.float32)
+    out = fleet.poisson(k0, k1, 2, lam)
+    assert out.dtype == torch.int32
+    assert bool((out[:, 0] == 0).all()) and bool((out[:, 2] == 0).all())
+    assert bool((out[:, 3] > 60).all())
+
+
 # ---------------------------------------------------------------- CUDA
 @pytest.fixture
 def cuda_device():
@@ -467,3 +546,47 @@ def test_cuda_kernels_match_plain_versions(cuda_device, kernel):
         torch.testing.assert_close(fleet.latency_scale(*a),
                                    fleet.latency_scale_plain(*a), rtol=1e-6,
                                    atol=0)
+
+
+def _poisson_inputs(seed, rows, cols, lam, device):
+    _, k0, k1 = _keys(np.random.default_rng(seed), rows)
+    return (k0.to(device), k1.to(device),
+            _t(lam, np.float32).to(device))
+
+
+#: rates that mix every branch inside one warp: zero, small, just under
+#: the inversion's limit, PTRS, negative and NaN (both draw 0)
+_MIXED = np.array([0.0, 0.3, 3.0, 25.0, 99.99, 100.0, 150.0, 54.0, -1.0,
+                   float("nan"), 0.49, 12.0], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 31, 32, 33, 120, 121])
+def test_cuda_poisson_matches_plain(cuda_device, cols):
+    for rows in (1, 7, 33, 500):
+        rng = np.random.default_rng(rows * 1000 + cols)
+        for lam in (rng.uniform(0.0, 160.0, (rows, cols)),
+                    rng.choice(_MIXED, (rows, cols))):
+            k0, k1, lt = _poisson_inputs(rows + cols, rows, cols, lam,
+                                         cuda_device)
+            ref = fleet.poisson_plain(k0, k1, 3, lt)
+            assert torch.equal(fleet.poisson(k0, k1, 3, lt), ref)
+            if rows > 1:
+                # row slices: every base pointer one row in
+                assert torch.equal(fleet.poisson(k0[1:], k1[1:], 3, lt[1:]),
+                                   ref[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_poisson_game_rates_and_row_order(cuda_device):
+    """The game fleet's rates at the kernels phase's (10^4, 120), and the
+    counts of permuted rows are the permuted counts."""
+    game = PS.make_game_fleet(10_000, np.random.default_rng(42))
+    lam = type(game[0]).batch_arrival_lam(game, 0, 120)
+    k0, k1, lt = _poisson_inputs(42, len(game), 120, lam, cuda_device)
+    got = fleet.poisson(k0, k1, 7, lt)
+    assert torch.equal(got, fleet.poisson_plain(k0, k1, 7, lt))
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(len(game))
+                            ).to(cuda_device)
+    assert torch.equal(fleet.poisson(k0[perm], k1[perm], 7, lt[perm]),
+                       got[perm])
