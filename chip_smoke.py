@@ -17,7 +17,14 @@ per source, all at once) and drives the port's three paths:
   (RWKV-6) and K7 (Mamba-2 SSD) against their plain versions, K4/K5 at
   zamba2's head dim 80, one full-width rwkv6-3b and one zamba2-2.7b
   tenant in the engine on the card, and their prefill logits against
-  the CPU on cuts of the same weights.
+  the CPU on cuts of the same weights;
+* the MoE, encoder-decoder and vision-stub families (phase
+  ``families``): K4/K5 at their shapes against their plain versions,
+  full-width olmoe-1b-7b and whisper-small tenants in the engine on the
+  card, llava-next-34b at its published widths (4 of 60 layers)
+  prefilled from embeddings then decoded, their prefill logits against
+  the CPU on cuts of the same weights, and a mixed engine of the
+  reduced models whose outcomes on the card equal the CPU's.
 
 Each path's launch counts are reset just before it and read just after.
 Needs one CUDA card; exits non-zero on any failure.
@@ -26,6 +33,7 @@ Needs one CUDA card; exits non-zero on any failure.
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,serving
     python3 chip_smoke.py --phases env,recurrent
+    python3 chip_smoke.py --phases env,families
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -47,7 +55,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent")
+PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent",
+          "families")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 SUM_RTOL = 1e-5         # f32 row sums in another order (K1/K2 else exact)
@@ -88,6 +97,22 @@ REC_F32_TOL = 1e-3          # × max |logit|, f32 CPU vs card
 BF16_NOISE_FACTOR = 2.0
 RECURRENT_KERNELS = ("rwkv6", "ssd")
 REC_PATH_KERNELS = RECURRENT_KERNELS + SERVING_KERNELS
+# families: one full-width olmoe-1b-7b (MoE, 64 experts, top-8) and one
+# whisper-small tenant (encoder-decoder, fed zero frames as the engine
+# feeds them) in the engine, the same requests; llava-next-34b at its
+# published widths with its depth cut to FAM_VISION_LAYERS of 60 (all
+# 60, ≈ 69 GB of bf16, would leave the card no room), prefilled from
+# seeded embeddings of SERVE_PROMPT rows, then SERVE_NEW decode steps
+# at 8 slots. The CPU-vs-card cuts keep FAM_CUT_LAYERS layers (whisper:
+# of each stack), in f32 within REC_F32_TOL and in bf16 within
+# LOGIT_TOL × max |logit|; olmoe's on a FAM_MOE_CUT_PROMPT-token prompt,
+# since its CPU prefill runs every expert over every row (C = T)
+FAM_ARCHS = ("olmoe-1b-7b", "whisper-small")
+FAM_VISION_ARCH = "llava-next-34b"
+FAM_VISION_LAYERS = 4
+FAM_VISION_SLOTS = 8
+FAM_CUT_LAYERS = 2
+FAM_MOE_CUT_PROMPT = 128
 
 
 def log(msg: str) -> None:
@@ -881,7 +906,9 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag="",
     dtype[, Sk]), and decode for each paged mode (mode, dtype[, B]) of B
     = SERVE_TENANTS · SERVE_REQUESTS sequences (page 16): "identity" — a
     dense (B, 2048, KH, D) cache through the identity page table, lengths
-    1,025–1,056 — "random" distinct pages with the same lengths, or
+    1,025–1,056 — "cross", an encoder-decoder's cross cache: a dense (B,
+    512, KH, D) one with every slot attended — "random" distinct pages
+    with the identity mode's lengths, or
     "edges": random pages and lengths around K5's 128-token rounds (1,
     127–129, its split count's rounds − 1, exactly and + 1, the whole
     table; the first B of them). dtype "mixed" is f32 q with bf16 pools.
@@ -939,7 +966,8 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag="",
     for pm in paged_modes:
         mode, dtype = pm[:2]
         B = pm[2] if len(pm) > 2 else SERVE_TENANTS * SERVE_REQUESTS
-        page, mp = 16, SERVE_SMAX // 16
+        smax = SERVE_SMAX // 4 if mode == "cross" else SERVE_SMAX
+        page, mp = 16, smax // 16
         qd, pd = ("float32", "bfloat16") if dtype == "mixed" else (dtype,
                                                                    dtype)
         splits = att.paged_splits(
@@ -954,6 +982,8 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag="",
             edges = [1, r - 1, r, r + 1, full - 1, full, full + 1, mp * page]
             lengths_np = np.array(edges[:B] if B > 1 else [full + 1],
                                   np.int32)
+        elif mode == "cross":
+            lengths_np = np.full(B, smax, np.int32)
         else:
             lengths_np = rng.integers(SERVE_PROMPT + 1,
                                       SERVE_PROMPT + SERVE_NEW + 1,
@@ -962,13 +992,13 @@ def attention_cases(seed, H, KH, D, flash_specs, paged_modes, tag="",
         valid = (torch.arange(mp * page, device=DEVICE)[None, :]
                  < lengths[:, None])[:, None, None, :]
         q = rand((B, H, D), qd)
-        if mode == "identity":
-            label = (f"identity view of a dense ({B}, {SERVE_SMAX}, {KH}, "
-                     f"{D}) cache")
-            kc, vc = (rand((B, SERVE_SMAX, KH, D), pd) for _ in range(2))
+        if mode in ("identity", "cross"):
+            label = (f"identity view of a dense ({B}, {smax}, {KH}, {D}) "
+                     f"{'cross ' if mode == 'cross' else ''}cache")
+            kc, vc = (rand((B, smax, KH, D), pd) for _ in range(2))
             kp, page = att.dense_cache_pages(kc)
             vp, _ = att.dense_cache_pages(vc)
-            table = att.identity_page_table(B, SERVE_SMAX, page, DEVICE)
+            table = att.identity_page_table(B, smax, page, DEVICE)
         else:
             label = ("random distinct pages" if mode == "random" else
                      f"random pages, B={B}, lengths "
@@ -1083,9 +1113,13 @@ def _timed(fn, sink: list):
 def launches_per_call(cfg) -> tuple[dict, dict]:
     """The kernel launches one prefill and one decode step of ``cfg``'s
     model make: K4/K5 once per attention layer (the hybrid family's
-    shared block once per group), K6 once per RWKV-6 layer, K7 once per
-    Mamba-2 layer."""
+    shared block once per group; the encoder-decoder's encoder layers
+    K4 once, its decoder layers K4 and K5 twice: self and cross
+    attention), K6 once per RWKV-6 layer, K7 once per Mamba-2 layer."""
     L = cfg.num_layers
+    if cfg.family == "encdec":
+        return ({"flash_attention": cfg.num_encoder_layers + 2 * L},
+                {"paged_attention": 2 * L})
     if cfg.family == "rwkv6":
         return {"rwkv6": L}, {}
     if cfg.family == "hybrid":
@@ -1151,11 +1185,16 @@ def serving_engine(fleet, archs, kernels) -> tuple:
         for calls, per in zip((len(pre), len(dec)), launches_per_call(cfg)):
             for k, m in per.items():
                 expected[k] += calls * m
+        # the tenant's own time: the walls of its prefills and steps
+        own_s = (sum(pre) + sum(dec)) / 1e3
+        made = sum(len(r.generated) for r in reqs if r.req.tenant == name)
         per_tenant[name] = {
             "arch": arch, "layers": cfg.num_layers, "prefills": len(pre),
             "decode_steps": len(dec),
             "prefill_ms_per_request": statistics.median(pre),
-            "decode_ms_per_step": statistics.median(dec)}
+            "decode_ms_per_step": statistics.median(dec),
+            "own_wall_s": own_s, "generated_tokens": made,
+            "tokens_per_s_of_own_wall": made / own_s}
     ok = done == len(reqs) and counts == expected
     row = {"archs": list(archs), "requests": len(reqs), "completed": done,
            "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
@@ -1173,54 +1212,90 @@ def engine_device_time(row, eng, names, prompts) -> dict:
     """Device time of one full-width prefill and of one decode step at
     the engine's batch, per tenant (:func:`graph_ms` over the model's
     own functions, after the run), and from them the share of the
-    engine's wall in which the card had nothing to do (the rest is the
-    host dispatching the models' torch operations one by one)."""
+    engine's wall, and of each tenant's own wall, in which the card had
+    nothing to do (the rest is the host dispatching the models' torch
+    operations one by one)."""
     import torch
+
+    from repro_torch.serving.engine import prefill_batch
 
     out = {"tenants": {}}
     busy = 0.0
     B = eng.cfg.slot_cap
     for name, prompt in zip(names, prompts):
         rt = eng.tenants[name]
-        tokens = torch.tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+        batch = prefill_batch(rt.cfg, torch.tensor(
+            prompt, dtype=torch.int64, device=DEVICE)[None])
         token = torch.zeros(B, dtype=torch.int64, device=DEVICE)
         pos = torch.full((B,), SERVE_PROMPT, dtype=torch.int64,
                          device=DEVICE)
-        pre = graph_ms(lambda: rt.model.prefill_fn(rt.params,
-                                                   {"tokens": tokens}), n=1)
+        pre = graph_ms(lambda: rt.model.prefill_fn(rt.params, batch), n=1)
         dec = graph_ms(lambda: rt.model.decode_fn(rt.params, rt.cache, token,
                                                   pos), n=1)
         t = row["tenants"][name]
-        busy += t["prefills"] * pre + t["decode_steps"] * dec
-        out["tenants"][name] = {"arch": t["arch"], "prefill_device_ms": pre,
-                                "decode_step_device_ms": dec}
+        own = t["prefills"] * pre + t["decode_steps"] * dec
+        busy += own
+        out["tenants"][name] = {
+            "arch": t["arch"], "prefill_device_ms": pre,
+            "decode_step_device_ms": dec,
+            "idle_share_of_own_wall": 1.0 - own / 1e3 / t["own_wall_s"]}
     out["engine_device_busy_s"] = busy / 1e3
     out["idle_share"] = 1.0 - busy / 1e3 / row["engine_wall_s"]
     log(f"[engine] device time {json.dumps(out)}")
     return out
 
 
-def _cut_logits(rt, keep: int, dtype: str, device: str, tokens):
+def _cut_batch(cfg, prompt, n: int) -> dict:
+    """A cut check's prefill batch on the CPU: the first ``n`` tokens of
+    ``prompt``, or for the vision stub ``n`` rows of seeded normal
+    embeddings; an encoder-decoder also gets seeded normal frames
+    (n // encoder_seq_ratio rows)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(9)
+
+    def normal(rows):
+        return torch.from_numpy(rng.standard_normal(
+            (1, rows, cfg.d_model)).astype(np.float32))
+    batch = ({"embeds": normal(n)} if cfg.frontend == "vision" else
+             {"tokens": torch.tensor(prompt[:n], dtype=torch.int64)[None]})
+    if cfg.is_encoder_decoder:
+        batch["frames"] = normal(max(n // cfg.encoder_seq_ratio, 1))
+    return batch
+
+
+def _cut_logits(rt, keep: int, dtype: str, device: str, batch):
     """Prefill logits (on the CPU, f32) of the first ``keep`` layers of
-    a tenant's full-width weights (for the hybrid family, its shared
-    block and the first ``keep / attn_every`` groups), held in
-    ``dtype``, through the port on ``device``, and the seconds it took."""
+    a model's full-width weights (``rt``: a tenant runtime or a model;
+    for the hybrid family, its shared block and the first ``keep /
+    attn_every`` groups; for the encoder-decoder, ``keep`` layers of
+    each stack), held in ``dtype``, through the port on ``device``, and
+    the seconds the prefill took. The cut is built on the card, where
+    drawing its initial weights is quick, and moved."""
     import torch
 
     from repro_torch.models import build_model
 
     cfg = rt.cfg
-    groups = keep // cfg.attn_every if cfg.family == "hybrid" else keep
-    prefix = "blocks.mamba." if cfg.family == "hybrid" else "layers."
-    state = {k: v.to(device) for k, v in rt.params.state_dict().items()
-             if not (k.startswith(prefix)
-                     and int(k[len(prefix):].split(".")[0]) >= groups)}
-    model = build_model(dataclasses.replace(cfg, num_layers=keep,
-                                            dtype=dtype),
-                        device=device)
+    cut = ({"blocks.mamba.": keep // cfg.attn_every}
+           if cfg.family == "hybrid" else {"layers.": keep})
+    shape = {"num_layers": keep}
+    if cfg.family == "encdec":
+        cut["enc_layers."] = keep
+        shape["num_encoder_layers"] = keep
+    state = {k: v for k, v in rt.params.state_dict().items()
+             if not any(k.startswith(p)
+                        and int(k[len(p):].split(".")[0]) >= n
+                        for p, n in cut.items())}
+    model = build_model(dataclasses.replace(cfg, dtype=dtype, **shape),
+                        device=DEVICE)
     model.params.load_state_dict(state)
+    params = model.params.to(device)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _ = model.prefill_fn(model.params, {"tokens": tokens.to(device)})
+    logits, _ = model.prefill_fn(params, batch)
     if device != "cpu":
         torch.cuda.synchronize()
     s = time.perf_counter() - t0
@@ -1231,19 +1306,19 @@ def _cut_logits(rt, keep: int, dtype: str, device: str, tokens):
     return logits.float().cpu(), s
 
 
-def cut_check(rt, prompt, keep: int, dtype: str, tol: float) -> dict:
+def cut_check(rt, prompt, keep: int, dtype: str, tol: float,
+              n: int = SERVE_CUT_PROMPT) -> dict:
     """A cut of ``keep`` layers (:func:`_cut_logits`) held in ``dtype``
-    on the card and on the CPU: the prefill logits must agree within
-    ``tol`` × max |logit|."""
-    import torch
-
-    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
-    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
-    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", tokens)
+    on the card and on the CPU, prefilled from ``n`` positions
+    (:func:`_cut_batch`): the logits must agree within ``tol`` × max
+    |logit|."""
+    batch = _cut_batch(rt.cfg, prompt, n)
+    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, batch)
+    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", batch)
     err = float((gpu - cpu).abs().max())
     scale = float(cpu.abs().max())
     out = {"arch": rt.cfg.name, "layers": keep, "dtype": dtype,
-           "prompt": SERVE_CUT_PROMPT, "max_abs_logit_err": err,
+           "prompt": n, "max_abs_logit_err": err,
            "max_abs_logit": scale, "tolerance": tol * scale,
            "cpu_prefill_s": cpu_s, "ok": err <= tol * scale}
     log(f"[cut check] {json.dumps(out)}")
@@ -1254,13 +1329,11 @@ def served_dtype_cut_check(rt, prompt, keep: int) -> dict:
     """The same cut in the tenant's served dtype (bf16) on the card and
     on the CPU, each against the CPU's f32 logits: the card may stray
     from f32 at most BF16_NOISE_FACTOR times as far as the CPU does."""
-    import torch
-
-    tokens = torch.tensor(prompt[:SERVE_CUT_PROMPT], dtype=torch.int64)[None]
+    batch = _cut_batch(rt.cfg, prompt, SERVE_CUT_PROMPT)
     dtype = rt.cfg.dtype
-    ref, _ = _cut_logits(rt, keep, "float32", "cpu", tokens)
-    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
-    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", tokens)
+    ref, _ = _cut_logits(rt, keep, "float32", "cpu", batch)
+    gpu, _ = _cut_logits(rt, keep, dtype, DEVICE, batch)
+    cpu, cpu_s = _cut_logits(rt, keep, dtype, "cpu", batch)
     card_err = float((gpu - ref).abs().max())
     cpu_err = float((cpu - ref).abs().max())
     tol = BF16_NOISE_FACTOR * cpu_err
@@ -1292,7 +1365,7 @@ def served_dtype_cut_check(rt, prompt, keep: int) -> dict:
         for mod, name, plain in swap:
             setattr(mod, name, plain)
         try:
-            got, _ = _cut_logits(rt, keep, dtype, DEVICE, tokens)
+            got, _ = _cut_logits(rt, keep, dtype, DEVICE, batch)
         finally:
             for (mod, name, _), fn in zip(swap, kept):
                 setattr(mod, name, fn)
@@ -1546,6 +1619,203 @@ def recurrent_kernel_checks(out: dict) -> None:
     merge_cases(out, "paged_attention", paged)
 
 
+# ---------------------------------------------------------------- phase 7
+def family_kernel_checks(out: dict) -> None:
+    """K4 and K5 against their plain versions at the new families'
+    shapes: whisper-small's (12 heads of 64, no grouping) — its cross
+    attention (SERVE_PROMPT queries over SERVE_PROMPT / 4 keys,
+    non-causal, bf16 and f32), its encoder (SERVE_PROMPT / 4 frames,
+    non-causal), its decoder's self attention, and decode over every
+    slot of the cross cache (bf16 and f32) and over the self cache —
+    and at head dim 128 with olmoe-1b-7b's 16 heads (G = 1) and
+    llava-next-34b's 56 over 8 (G = 7): causal prefill in bf16 and f32
+    and decode at full serving length."""
+    Se = SERVE_PROMPT // 4
+    flash, paged = attention_cases(
+        24, 12, 12, 64,
+        ((SERVE_PROMPT, False, 0, "bfloat16", Se),
+         (SERVE_PROMPT, False, 0, "float32", Se),
+         (Se, False, 0, "bfloat16"), (SERVE_PROMPT, True, 0, "bfloat16")),
+        (("cross", "bfloat16"), ("cross", "float32"),
+         ("identity", "bfloat16")), tag=" whisper")
+    merge_cases(out, "flash_attention", flash)
+    merge_cases(out, "paged_attention", paged)
+    for seed, H, KH, tag in ((25, 16, 16, " olmoe"), (26, 56, 8, " llava")):
+        flash, paged = attention_cases(
+            seed, H, KH, 128,
+            ((SERVE_PROMPT, True, 0, "bfloat16"),
+             (SERVE_PROMPT, True, 0, "float32")),
+            (("identity", "bfloat16"),), tag=tag)
+        merge_cases(out, "flash_attention", flash)
+        merge_cases(out, "paged_attention", paged)
+
+
+def vision_run(fleet) -> tuple:
+    """llava-next-34b at its published widths, FAM_VISION_LAYERS of its
+    60 layers, random weights from seed 0, on the card: a prefill from
+    SERVE_PROMPT rows of seeded normal embeddings, its cache copied into
+    FAM_VISION_SLOTS slots of SERVE_SMAX positions, then SERVE_NEW greedy
+    decode steps from tokens at every slot. The prefill must launch K4
+    once a layer and each step K5 once a layer, and every logit must be
+    finite. Returns (row, model, the decode step's inputs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(FAM_VISION_ARCH),
+                              num_layers=FAM_VISION_LAYERS)
+    model = build_model(cfg, device=DEVICE)
+    embeds = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, SERVE_PROMPT, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    before = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}
+    pre, dec = [], []
+    prefill, decode = _timed(model.prefill_fn, pre), _timed(model.decode_fn,
+                                                            dec)
+    B, L = FAM_VISION_SLOTS, cfg.num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, one = prefill(model.params, {"embeds": embeds})
+    cache = {k: torch.zeros(spec.shape, dtype=spec.dtype, device=DEVICE)
+             for k, spec in model.cache_specs(B, SERVE_SMAX).items()}
+    for k in cache:                      # the same request in every slot
+        cache[k][:, :, :SERVE_PROMPT] = one[k]
+    finite = [torch.isfinite(logits).all()]
+    token = logits.argmax(-1).expand(B).contiguous()
+    for step in range(SERVE_NEW):
+        pos = torch.full((B,), SERVE_PROMPT + step, dtype=torch.int64,
+                         device=DEVICE)
+        logits, cache = decode(model.params, cache, token, pos)
+        finite.append(torch.isfinite(logits).all())
+        token = logits.argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: fleet.LAUNCHES[k] - before[k] for k in SERVING_KERNELS}
+    expected = {"flash_attention": L, "paged_attention": SERVE_NEW * L}
+    ok = (launched == expected and bool(torch.stack(finite).all())
+          and tuple(logits.shape) == (B, cfg.padded_vocab))
+    row = {"arch": cfg.name, "layers": f"{L} of 60", "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+           "prompt_embeds": SERVE_PROMPT, "slots": B, "decode_steps":
+           SERVE_NEW, "launches": launched, "expected_launches": expected,
+           "prefill_ms": pre[0], "decode_ms_per_step": statistics.median(dec),
+           "wall_s": wall, "decode_tokens": B * SERVE_NEW,
+           "decode_tokens_per_s": B * SERVE_NEW / wall,
+           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[vision] {json.dumps(row)} {'ok' if ok else 'FAIL'}")
+    row["ok"] = ok
+    return row, model, (embeds, cache, token, pos)
+
+
+def vision_device_time(row, model, inputs) -> dict:
+    """Device time of the vision run's prefill and of one decode step
+    (:func:`graph_ms`), and the share of its wall the card sat idle."""
+    embeds, cache, token, pos = inputs
+    pre = graph_ms(lambda: model.prefill_fn(model.params,
+                                            {"embeds": embeds}), n=1)
+    dec = graph_ms(lambda: model.decode_fn(model.params, cache, token, pos),
+                   n=1)
+    busy = pre + row["decode_steps"] * dec
+    out = {"arch": row["arch"], "prefill_device_ms": pre,
+           "decode_step_device_ms": dec, "device_busy_s": busy / 1e3,
+           "idle_share": 1.0 - busy / 1e3 / row["wall_s"]}
+    log(f"[vision] device time {json.dumps(out)}")
+    return out
+
+
+def moe_prefill_share(rt, prompt, prefill_device_ms: float) -> dict:
+    """How much of a full-width MoE prefill's device time its FFNs take:
+    one layer's ``moe_ffn`` and its three expert products alone on the
+    layer's (1, SERVE_PROMPT, D) input (:func:`graph_ms`), times the
+    layers, against the whole prefill's device time. Below 4,096 tokens
+    the buffer is dropless (C = T), so the products run every expert
+    over every row: E / k times the routed work."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_norm, embed
+
+    cfg, p = rt.cfg, rt.params.layers[0]
+    T, D, F = SERVE_PROMPT, cfg.d_model, cfg.d_ff
+    E, k = cfg.num_experts, cfg.experts_per_token
+    x = apply_norm(p.ln2, embed(rt.params.tok, torch.tensor(
+        prompt, dtype=torch.int64, device=DEVICE)[None], cfg), cfg)
+    h = torch.randn((E, moe.capacity(cfg, T), D), device=DEVICE,
+                    dtype=x.dtype)
+    ffn = graph_ms(lambda: moe.moe_ffn(p.moe, x, cfg), n=1)
+    prod = graph_ms(lambda: moe.expert_glu(p.moe, h, cfg), n=1)
+    L = cfg.num_layers
+    out = {"arch": cfg.name, "tokens": T, "capacity": moe.capacity(cfg, T),
+           "moe_ffn_ms_per_layer": ffn, "expert_products_ms_per_layer": prod,
+           "prefill_device_ms": prefill_device_ms,
+           "moe_ffn_share": L * ffn / prefill_device_ms,
+           "expert_products_share": L * prod / prefill_device_ms,
+           "dropless_tflop": L * 6 * E * T * D * F / 1e12,
+           "routed_tflop": L * 6 * k * T * D * F / 1e12}
+    log(f"[moe] prefill share {json.dumps(out)}")
+    return out
+
+
+def mixed_engine_outcomes(device: str) -> list:
+    """Reduced olmoe-1b-7b and whisper-small tenants in one engine on
+    ``device`` on a virtual clock, two requests each, the MoE tenant
+    preempted after 3 steps and resumed 3 steps later: each request's
+    tenant, generated count, first-token and finish times and phase
+    (they depend on the clock and token counts alone)."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import Quota, TenantSpec
+    from repro_torch.serving import (EngineConfig, MultiTenantEngine,
+                                     VirtualClock)
+
+    clock = VirtualClock(0.25)
+    eng = MultiTenantEngine(EngineConfig(
+        policy="none", slot_cap=2, capacity_slots=4, capacity_pages=64,
+        max_seq_len=64, round_interval_steps=10**9), seed=5, clock=clock,
+        device=device)
+    names = ("moe", "asr")
+    for name, arch in zip(names, FAM_ARCHS):
+        if not eng.add_tenant(TenantSpec(name=name, slo_latency=60.0),
+                              get_reduced(arch)):
+            raise RuntimeError(f"{name} not admitted")
+    rng = np.random.default_rng(4)
+    reqs = [eng.submit(name, [int(x) for x in rng.integers(1, 200, 6 + i)],
+                       max_new_tokens=8) for i in range(2) for name in names]
+    for step in range(200):
+        if step in (3, 6):
+            eng.ctrl.actuator.apply_quota(
+                "moe", Quota(slots=0 if step == 3 else 2, pages=64))
+        if all(r.phase.value == "done" for r in reqs):
+            break
+        clock.tick()
+        eng.step()
+    return [(r.req.tenant, len(r.generated), r.first_token_t, r.finish_t,
+             r.phase.value) for r in reqs]
+
+
+def mixed_engine_check() -> dict:
+    """:func:`mixed_engine_outcomes` on the card and on the CPU must be
+    equal, and every request must complete."""
+    import torch
+
+    on_gpu = mixed_engine_outcomes(DEVICE)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # tiny tensors: threads only add overhead
+    try:
+        on_cpu = mixed_engine_outcomes("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    ok = on_gpu == on_cpu and all(o[1] == 8 and o[4] == "done"
+                                  for o in on_gpu)
+    out = {"archs": list(FAM_ARCHS), "outcomes": on_gpu,
+           "identical_to_cpu": on_gpu == on_cpu, "ok": ok}
+    log(f"[families] mixed engine {json.dumps(out)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def _path_launches(path: str, counts: dict, launches: dict,
                    extra: str = "") -> list:
@@ -1638,6 +1908,45 @@ def main(argv=None) -> int:
             if not served_dtype_cut_check(rt, prompt, keep)["ok"]:
                 failures.append(f"{rt.cfg.name} {rt.cfg.dtype} cut check")
         engine_device_time(row, eng, names, prompts)
+        del eng, rt
+        gc.collect()
+    if "families" in phases:
+        family_kernel_checks(kern)
+        failures += [f"kernel {k}" for k in SERVING_KERNELS
+                     if not kern[k]["ok"]]
+        fleet.reset_launches()
+        row, eng, names, prompts = serving_engine(fleet, FAM_ARCHS,
+                                                  SERVING_KERNELS)
+        if not row["ok"]:
+            failures.append("full-width families engine")
+        vrow, vmodel, vinputs = vision_run(fleet)
+        if not vrow["ok"]:
+            failures.append(f"{FAM_VISION_ARCH} run on the card")
+        failures += _path_launches(
+            "families", {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS},
+            launches)
+        vision_device_time(vrow, vmodel, vinputs)
+        del vinputs
+        # the vision stub prefills from embeddings: it takes no prompt
+        cuts = [(eng.tenants[n], p) for n, p in zip(names, prompts)]
+        for rt, prompt in cuts + [(vmodel, None)]:
+            n = (FAM_MOE_CUT_PROMPT if rt.cfg.family == "moe"
+                 else SERVE_CUT_PROMPT)
+            for dtype, tol in (("float32", REC_F32_TOL),
+                               (rt.cfg.dtype, LOGIT_TOL)):
+                if not cut_check(rt, prompt, FAM_CUT_LAYERS, dtype, tol,
+                                 n=n)["ok"]:
+                    failures.append(f"{rt.cfg.name} {dtype} cut check")
+        del vmodel, rt, cuts
+        gc.collect()
+        dev = engine_device_time(row, eng, names, prompts)
+        moe_name = names[FAM_ARCHS.index("olmoe-1b-7b")]
+        moe_prefill_share(eng.tenants[moe_name], prompts[names.index(
+            moe_name)], dev["tenants"][moe_name]["prefill_device_ms"])
+        del eng
+        gc.collect()
+        if not mixed_engine_check()["ok"]:
+            failures.append("mixed families engine, card against CPU")
 
     record = []
     sources = {name: f"src/repro_torch/csrc/{name}.cu" for name in

@@ -1,12 +1,11 @@
 """Serving launcher: multi-tenant engine + DYVERSE under a request trace.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --tenants chat:tinyllama-1.1b code:granite-8b --policy sdps \
+      --tenants chat:tinyllama-1.1b code:olmoe-1b-7b --policy sdps \
       --requests 24 [--device cpu]
 
-Models are the reduced configs of the ported families: the dense
-decoders, RWKV-6 (``rwkv6-3b``) and hybrid Mamba-2 (``zamba2-2.7b``);
-the others raise. ``--device`` defaults to ``cuda``.
+Models are the reduced configs of any of the ten architectures.
+``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ from repro_torch.serving import EngineConfig, MultiTenantEngine
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tenants", nargs="+",
-                    default=["chat:tinyllama-1.1b", "code:granite-8b"],
+                    default=["chat:tinyllama-1.1b", "code:olmoe-1b-7b"],
                     help="name:arch pairs")
     ap.add_argument("--policy", default="sdps",
                     choices=["none", "sps", "wdps", "cdps", "sdps"])

@@ -9,6 +9,10 @@ Routes, by the device of the tensors (the port's rule, as in
   window when the config is ``swa``; on the CPU
   :func:`swa_attention` or :func:`chunked_attention`, the reference's
   own non-Pallas path;
+* cross attention (the encoder-decoder's), :func:`cross_attention` —
+  non-causal, the decoder's S queries over the encoder's Se keys: on
+  CUDA K4 with ``causal=False``, on the CPU the reference's
+  :func:`chunked_attention`;
 * decode, :func:`decode_attention` — always the paged kernel K5 over the
   dense cache seen as a page pool with the identity page table (slot b
   owns pages b·Smax/page … (b+1)·Smax/page − 1, ``lengths = cache_len``);
@@ -176,6 +180,17 @@ def full_attention_reference(q, k, v, *, causal=True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bhqd", p, v.float())
     return out.transpose(1, 2).to(q.dtype)
+
+
+def cross_attention(q, k, v, cfg: ModelConfig):
+    """Non-causal attention of q (B, S, H, hd) over the encoder's k/v
+    (B, Se, KH, hd). The reference's cross attention takes its default
+    f32 probabilities, whatever ``attn_bf16_probs`` says."""
+    if q.is_cuda:
+        return kern.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2),
+                                    causal=False).transpose(1, 2)
+    return chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
 
 
 def attention(p: Attention, x, cfg: ModelConfig, positions, *, causal=True):

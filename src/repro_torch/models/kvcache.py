@@ -6,10 +6,12 @@ Two worlds, as in the JAX package:
     (the reference rebuilds them functionally);
   * a paged KV pool — device memory carved into fixed-size pages;
     tenants own page quotas that DYVERSE vertically scales at runtime.
-The dense branch serves the dense decoder; the RWKV-6 and hybrid
-families keep their fixed-size states beside it. :func:`cache_specs`
-is the one place that knows each family's cache layout: its shapes,
-dtypes, and which axis holds the batch and which the sequence.
+The dense branch serves the dense and MoE decoders and the
+encoder-decoder (with its cross K/V beside its self K/V); the RWKV-6
+and hybrid families keep their fixed-size states beside it.
+:func:`cache_specs` is the one place that knows each family's cache
+layout: its shapes, dtypes, and which axis holds the batch and which
+the sequence.
 """
 from __future__ import annotations
 
@@ -58,14 +60,25 @@ class TensorSpec(NamedTuple):
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     """{name: TensorSpec} of the decode caches of ``cfg``'s family for
-    ``batch`` slots of ``max_len`` tokens: the dense k/v (L, B, S, KH,
-    hd); the RWKV-6 token-shift and wkv states (L, B, ...); the hybrid
-    family's shared-attention k/v (G, B, S, KH, hd) and its conv and SSM
-    states (G, attn_every, B, ...)."""
-    if cfg.family == "dense":
+    ``batch`` slots of ``max_len`` tokens: the dense and MoE k/v (L, B,
+    S, KH, hd); the encoder-decoder's k/v (L, B, S, KH, hd) and cross
+    k/v ``ck``/``cv`` (L, B, Se, KH, hd), Se = max(max_len //
+    encoder_seq_ratio, 1); the RWKV-6 token-shift and wkv states (L, B,
+    ...); the hybrid family's shared-attention k/v (G, B, S, KH, hd) and
+    its conv and SSM states (G, attn_every, B, ...)."""
+    if cfg.family in ("dense", "moe"):
         shape = dense_cache_shape(cfg, batch, max_len)
         return {"k": TensorSpec(shape, torch.bfloat16, 1, 2),
                 "v": TensorSpec(shape, torch.bfloat16, 1, 2)}
+    if cfg.family == "encdec":
+        L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        Se = max(max_len // cfg.encoder_seq_ratio, 1)
+        kv = (L, batch, max_len, KH, hd)
+        ckv = (L, batch, Se, KH, hd)
+        return {"k": TensorSpec(kv, torch.bfloat16, 1, 2),
+                "v": TensorSpec(kv, torch.bfloat16, 1, 2),
+                "ck": TensorSpec(ckv, torch.bfloat16, 1, 2),
+                "cv": TensorSpec(ckv, torch.bfloat16, 1, 2)}
     if cfg.family == "rwkv6":
         L, D = cfg.num_layers, cfg.d_model
         H, K = cfg.rwkv_heads, cfg.rwkv_head_size
@@ -84,17 +97,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
             "ssm": TensorSpec((G, Kn, batch, cfg.ssm_heads,
                                cfg.ssm_head_dim, N), torch.float32, 2),
         }
-    raise NotImplementedError(
-        f"{cfg.family} caches are ported later in slice 3")
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def grow_cache(cfg: ModelConfig, cache, max_len: int):
     """Pad a prefill-produced cache along its sequence axes to the
     decode caches' length (:func:`cache_specs`) so decode steps have
-    free slots; fixed-size states stay as they are."""
+    free slots; fixed-size states stay as they are, and so does the
+    cross K/V, at the prefill's encoder length (the reference pads the
+    self K/V only, and decode attends over every cross slot)."""
     out = dict(cache)
     for k, spec in cache_specs(cfg, 1, max_len).items():
-        if spec.seq_axis is None:
+        if spec.seq_axis is None or k in ("ck", "cv"):
             continue
         pad = spec.shape[spec.seq_axis] - cache[k].shape[spec.seq_axis]
         if pad > 0:

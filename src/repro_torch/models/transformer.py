@@ -1,13 +1,14 @@
-"""Backbones: the dense decoder, the RWKV-6 stack and the hybrid
-Mamba-2 + shared-attention stack (zamba2), each with its prefill stack
-and its one-token decode step.
+"""Backbones: the dense/MoE decoder (also the encoder-decoder's two
+stacks, whose decoder blocks add cross attention), the RWKV-6 stack and
+the hybrid Mamba-2 + shared-attention stack (zamba2), each with its
+prefill stack and its one-token decode step.
 
 Layers are an ``nn.ModuleList`` walked by a Python loop (the reference
 scans stacked params; its ``remat`` and ``scan_layers`` knobs are for
 training and compile size, and have no counterpart in this inference
 path). Decode steps update their caches in place (the reference
-returns new ones). The MoE FFN and cross attention come with their
-families.
+returns new ones). The MoE load-balance loss is dropped in these
+inference stacks (:func:`repro_torch.models.moe.moe_ffn` returns it).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.kvcache import write_slot
 from repro_torch.models.layers import (GLUMLP, Norm, apply_norm, cdtype,
@@ -25,39 +27,68 @@ from repro_torch.models.layers import (GLUMLP, Norm, apply_norm, cdtype,
 
 class Block(nn.Module):
     """One decoder block's weights (the reference's ``block_params``):
-    the dense family's layers and the hybrid family's shared block."""
+    self attention, then with ``cross`` a cross-attention sub-block
+    (``ln_cross``, ``cross``), then the FFN — ``moe`` for the MoE
+    family, else ``mlp``. The dense, MoE and encoder-decoder layers and
+    the hybrid family's shared block."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 cross: bool = False):
         super().__init__()
-        if cfg.family not in ("dense", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.family} blocks are ported later in slice 3")
         self.ln1 = Norm(cfg, device)
         self.attn = attn.Attention(cfg, gen, device)
         self.ln2 = Norm(cfg, device)
-        self.mlp = GLUMLP(cfg, gen, device)
+        if cross:
+            self.ln_cross = Norm(cfg, device)
+            self.cross = attn.Attention(cfg, gen, device)
+        if cfg.family == "moe":
+            self.moe = moe_mod.MoE(cfg, gen, device)
+        else:
+            self.mlp = GLUMLP(cfg, gen, device)
 
 
 def _ffn(p: Block, x, cfg: ModelConfig):
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(p.moe, x, cfg)[0]
     return glu_mlp(p.mlp, x, cfg)
 
 
-def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True):
-    """One decoder block (prefill). Returns (x, (k, v))."""
+def cross_kv(p_cross: attn.Attention, enc_out, cfg: ModelConfig):
+    """The encoder output's cross K/V, each (B, Se, KH, hd) (no RoPE)."""
+    dt = cdtype(cfg)
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ p_cross.wk.to(dt)).reshape(shape),
+            (enc_out @ p_cross.wv.to(dt)).reshape(shape))
+
+
+def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
+              enc_out=None):
+    """One decoder block (prefill); with ``enc_out`` (B, Se, D) its
+    queries also attend, non-causally, over the encoder's keys. Returns
+    (x, (k, v))."""
     a, (k, v) = attn.attention(p.attn, apply_norm(p.ln1, x, cfg), cfg,
                                positions, causal=causal)
     x = x + a
+    if enc_out is not None:
+        h = apply_norm(p.ln_cross, x, cfg)
+        q, _, _ = attn.qkv_proj(p.cross, h, cfg, positions=None)
+        ck, cv = cross_kv(p.cross, enc_out, cfg)
+        o = attn.cross_attention(q, ck, cv, cfg)
+        B, S = x.shape[:2]
+        x = x + o.reshape(B, S, cfg.q_dim) @ p.cross.wo.to(cdtype(cfg))
     x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
     return x, (k, v)
 
 
 def decoder_stack(layers: nn.ModuleList, x, cfg: ModelConfig, positions, *,
-                  causal=True, collect_cache=False):
-    """All layers in order. Returns (x, (k, v) stacked over layers as
-    (L, B, S, KH, hd), or None)."""
+                  causal=True, enc_out=None, collect_cache=False):
+    """All layers in order (``enc_out``: see :func:`block_fwd`). Returns
+    (x, (k, v) stacked over layers as (L, B, S, KH, hd), or None)."""
     ks, vs = [], []
     for p in layers:
-        x, (k, v) = block_fwd(p, x, cfg, positions, causal=causal)
+        x, (k, v) = block_fwd(p, x, cfg, positions, causal=causal,
+                              enc_out=enc_out)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -70,13 +101,20 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
     """One-token decode through all layers.
 
     x (B,1,D); cache {"k","v"}: (L,B,S,KH,hd), written in place at each
-    row's slot; pos (B,) int — index of the new token. Returns
-    (x, cache)."""
+    row's slot; pos (B,) int — index of the new token. An
+    encoder-decoder's cache also holds the cross K/V {"ck","cv"}:
+    (L,B,Se,KH,hd), which each layer's cross attention reads whole —
+    all Se slots, the zero padding past the prefill's encoder length
+    included, as the reference does. Returns (x, cache)."""
     window = cfg.window if cfg.attention == "swa" else 0
     slot = pos % window if window else pos
     cache_len = torch.clamp(pos + 1, max=window) if window else pos + 1
     dt = cdtype(cfg)
     B = x.shape[0]
+    cross = "ck" in cache
+    if cross:       # made on the card: a host copy would stall each layer
+        cross_len = torch.full((B,), cache["ck"].shape[2], dtype=torch.int32,
+                               device=x.device)
     for i, p in enumerate(layers):
         kc, vc = cache["k"][i], cache["v"][i]
         hh = apply_norm(p.ln1, x, cfg)
@@ -84,6 +122,12 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
         write_slot((kc, vc), k, v, slot)
         o = attn.decode_attention(q, kc, vc, cache_len, window=window)
         x = x + o.reshape(B, 1, cfg.q_dim) @ p.attn.wo.to(dt)
+        if cross:
+            hc = apply_norm(p.ln_cross, x, cfg)
+            qc, _, _ = attn.qkv_proj(p.cross, hc, cfg, positions=None)
+            oc = attn.decode_attention(qc, cache["ck"][i], cache["cv"][i],
+                                       cross_len)
+            x = x + oc.reshape(B, 1, cfg.q_dim) @ p.cross.wo.to(dt)
         x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
     return x, cache
 

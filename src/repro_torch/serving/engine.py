@@ -23,10 +23,11 @@ default, or a :class:`~repro_torch.serving.spec.VirtualClock` for
 deterministic simulation-grade runs (the serving federation's
 determinism contract).
 
-Device: every tenant's weights and its caches (the dense family's
-(L, slot_cap, Smax, KH, hd) KV cache, RWKV-6's per-layer states, the
-hybrid family's shared-attention KV and Mamba-2 states) live on the
-engine's ``device`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
+Device: every tenant's weights and its caches (the dense and MoE
+families' (L, slot_cap, Smax, KH, hd) KV cache, the encoder-decoder's
+beside its cross KV, RWKV-6's per-layer states, the hybrid family's
+shared-attention KV and Mamba-2 states) live on the engine's
+``device`` — ``"cuda"`` unless the caller asks for ``"cpu"``.
 On the card, attention prefill runs through the flash kernel K4 and
 decode through the paged kernel K5
 (:mod:`repro_torch.kernels.attention`), the RWKV-6 recurrence through
@@ -233,7 +234,7 @@ class MultiTenantEngine:
             ctx = rs.req.prompt
         tokens = torch.tensor(ctx, dtype=torch.int64,
                               device=rt.device)[None, :]
-        logits, cache1 = rt._prefill(rt.params, {"tokens": tokens})
+        logits, cache1 = rt._prefill(rt.params, prefill_batch(cfg, tokens))
         rt.cache = _insert_cache(rt.cache, cache1, slot, cfg,
                                  self.cfg.max_seq_len)
         if resumed:
@@ -285,13 +286,28 @@ class MultiTenantEngine:
             self.step()
 
 
+def prefill_batch(cfg: ModelConfig, tokens) -> dict:
+    """The prefill batch of a request's tokens (1, S): for an
+    encoder-decoder also ``frames``, zeros (1, max(S // ratio, 1), D) in
+    bf16 on the tokens' device — the conv frontend is a stub, and the
+    reference's engine feeds it zeros."""
+    batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        Se = max(tokens.shape[1] // cfg.encoder_seq_ratio, 1)
+        batch["frames"] = torch.zeros((1, Se, cfg.d_model),
+                                      dtype=torch.bfloat16,
+                                      device=tokens.device)
+    return batch
+
+
 def _insert_cache(cache, cache1, slot: int, cfg: ModelConfig, max_len: int):
     """Insert a single-request prefill cache into the batch caches at
     ``slot``, in place, cast to each cache's dtype, along the batch axis
     of its spec (:func:`~repro_torch.models.kvcache.cache_specs`): a
     cache with a sequence axis takes the prefill's S positions and
-    zeros past them (the reference's zero padding); a fixed-size state
-    is whole."""
+    zeros past them (the reference's zero padding; the cross K/V's
+    padding too, which the encoder-decoder's decode attends over); a
+    fixed-size state is whole."""
     for k, spec in cache_specs(cfg, 1, max_len).items():
         dst = cache[k].select(spec.batch_axis, slot)
         src = cache1[k].select(spec.batch_axis, 0)

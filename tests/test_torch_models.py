@@ -9,6 +9,9 @@ rtol/atol 1e-4 and the greedy token streams are equal; in bfloat16 both
 round activations at every matmul, so the port is held to max abs 5e-2
 on the same (teacher-forced) tokens. The attention functions are held
 to the reference at 1e-5 in float32 (its own test tolerance)."""
+import dataclasses
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +23,11 @@ from repro.configs import get_reduced as ref_reduced
 from repro.models.kvcache import write_slot as ref_write_slot
 from repro.serving.engine import _insert_cache as ref_insert_cache
 import repro_torch.models.attention as PA
-from repro_torch.configs import get_reduced
+from repro_torch.configs import ARCH_IDS, get_reduced
 from repro_torch.models import build_model, params_from_jax
-from repro_torch.models.kvcache import write_slot
+from repro_torch.models.kvcache import grow_cache, write_slot
 from repro_torch.serving.engine import _insert_cache
-from torch_lm_parity import models, run, t
+from torch_lm_parity import models, port_batch, prompt, run, t
 
 ARCH = "tinyllama-1.1b"
 
@@ -66,10 +69,32 @@ def test_params_from_jax_holds_matrices_in_compute_dtype():
     assert pparams.tok.embed.shape == (pcfg.padded_vocab, pcfg.d_model)
 
 
-def test_other_families_raise_with_their_slice():
-    for arch in ("olmoe-1b-7b", "whisper-small", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            build_model(get_reduced(arch), device="cpu")
+def test_unknown_family_raises_value_error():
+    """Both packages refuse a family they do not know with ValueError."""
+    from repro.models import build_model as ref_build
+
+    for build, cfg in ((ref_build, ref_reduced(ARCH)),
+                       (partial(build_model, device="cpu"),
+                        get_reduced(ARCH))):
+        with pytest.raises(ValueError, match="unknown family mamba"):
+            build(dataclasses.replace(cfg, family="mamba"))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_prefills_and_decodes(arch):
+    """Every reduced architecture the reference serves: a prefill from
+    its inputs (tokens, the vision stub's embeds, the encoder's frames),
+    its cache grown, and decode steps, with finite logits."""
+    cfg = get_reduced(arch)
+    m = build_model(cfg, device="cpu")
+    logits, cache = m.prefill_fn(m.params, port_batch(prompt(cfg, 2, 12)))
+    cache = grow_cache(cfg, cache, 16)
+    assert set(cache) == set(m.cache_specs(2, 16))
+    for step in range(3):
+        logits, cache = m.decode_fn(m.params, cache, logits.argmax(-1),
+                                    torch.full((2,), 12 + step))
+        assert logits.shape == (2, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
 
 
 # ------------------------------------------------------------- attention

@@ -1,7 +1,10 @@
 """Shared harness of the port's model-parity tests: one reduced model of
 each package on the same weights (the reference's ``init_params``
 carried over with ``params_from_jax``), a seeded prompt through both
-prefills, then greedy (or forced) decode steps through both."""
+prefills (tokens, or the vision stub's ``embeds``, and the
+encoder-decoder's ``frames``, all made with numpy from the seed), then
+greedy (or forced) decode steps through both, each package's cache
+grown by its own ``grow_cache``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,17 +35,41 @@ def models(arch, dtype, seed=0):
     return rcfg, rm, rparams, pcfg, pm, pparams
 
 
+def prompt(cfg, B, S, seed=0):
+    """A prefill batch of ``cfg``'s model as numpy arrays: ``tokens`` (B,
+    S), or ``embeds`` (B, S, D) for the vision stub, and for the
+    encoder-decoder ``frames`` (B, max(S // ratio, 1), D), all drawn
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "vision":
+        batch = {"embeds": rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (B, S)).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        Se = max(S // cfg.encoder_seq_ratio, 1)
+        batch["frames"] = rng.standard_normal(
+            (B, Se, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def port_batch(batch):
+    """A numpy prefill batch as the port takes it (int64 tokens)."""
+    return {k: t(a).long() if k == "tokens" else t(a)
+            for k, a in batch.items()}
+
+
 def run(arch, dtype, *, B=2, S=16, steps=8, forced=None):
-    """Prefill S prompt tokens, then ``steps`` greedy decode steps (or the
-    ``forced`` (steps, B) tokens) on both; returns both logit streams and
-    token streams."""
+    """Prefill S prompt positions (:func:`prompt`), then ``steps`` greedy
+    decode steps (or the ``forced`` (steps, B) tokens) on both; returns
+    both logit streams and token streams."""
     rcfg, rm, rparams, pcfg, pm, pparams = models(arch, dtype)
-    tokens = np.random.default_rng(0).integers(
-        0, rcfg.vocab_size, (B, S)).astype(np.int32)
+    batch = prompt(rcfg, B, S)
     r_logits, r_cache = jax.jit(rm.prefill_fn)(
-        rparams, {"tokens": jnp.asarray(tokens)})
+        rparams, {k: jnp.asarray(a) for k, a in batch.items()})
     r_cache = ref_grow(rcfg, r_cache, S + steps + 1)
-    p_logits, p_cache = pm.prefill_fn(pparams, {"tokens": t(tokens).long()})
+    p_logits, p_cache = pm.prefill_fn(pparams, port_batch(batch))
     p_cache = grow_cache(pcfg, p_cache, S + steps + 1)
     r_dec = jax.jit(rm.decode_fn)
     out = {"ref": [np.asarray(r_logits, np.float32)],
