@@ -24,16 +24,28 @@ per source, all at once) and drives the port's three paths:
   card, llava-next-34b at its published widths (4 of 60 layers)
   prefilled from embeddings then decoded, their prefill logits against
   the CPU on cuts of the same weights, and a mixed engine of the
-  reduced models whose outcomes on the card equal the CPU's.
+  reduced models whose outcomes on the card equal the CPU's;
+* the campaign harness (phase ``campaign``): the cells of
+  ``TORCH_GRID`` (the torch engine against batched) and the ci
+  campaign's serving cells inline on the card (their launches are the
+  ``campaign`` path's) and on the CPU, K4 and K5 against their plain
+  versions on copies of the inputs that inline run gave them (the
+  reduced tinyllama-1.1b's shapes), then the full ci campaign, full
+  mode, fanned out over CAMPAIGN_WORKERS child processes from this
+  process, which holds a CUDA context by then: every cell ok, no gate
+  failure, the serving cells' records equal to the CPU's.
 
 Each path's launch counts are reset just before it and read just after.
-Needs one CUDA card; exits non-zero on any failure.
+At the end the campaign's fork server is stopped and no process this
+run started may still be there. Needs one CUDA card; exits non-zero on
+any failure.
 
     python3 chip_smoke.py                 # everything
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,serving
     python3 chip_smoke.py --phases env,recurrent
     python3 chip_smoke.py --phases env,families
+    python3 chip_smoke.py --phases env,campaign
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -46,6 +58,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -56,7 +69,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent",
-          "families")
+          "families", "campaign")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 SUM_RTOL = 1e-5         # f32 row sums in another order (K1/K2 else exact)
@@ -113,6 +126,10 @@ FAM_VISION_LAYERS = 4
 FAM_VISION_SLOTS = 8
 FAM_CUT_LAYERS = 2
 FAM_MOE_CUT_PROMPT = 128
+# campaign: the ci gate campaign in full mode, as the port's campaign
+# CLI runs it by default (two workers)
+CAMPAIGN = "ci"
+CAMPAIGN_WORKERS = 2
 
 
 def log(msg: str) -> None:
@@ -1816,6 +1833,266 @@ def mixed_engine_check() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+def _cells_by_id(records) -> dict:
+    return {r["cell"]: r for r in records}
+
+
+def _capture_attention(seen: dict):
+    """Wrap K4's and K5's wrappers in ``repro_torch.kernels.attention``
+    (the models call them through that module) so that ``seen`` keeps
+    copies of the inputs of the first call of each kernel at each shape,
+    layout, dtype and mask, and for K5 also of the call over the most
+    tokens; every call still runs the kernel. Returns the function that
+    puts the wrappers back."""
+    from repro_torch.kernels import attention as att
+
+    orig = {"flash": att.flash_attention, "paged": att.paged_attention}
+
+    def wrap(kind):
+        def run(*args, **kw):
+            key = (kind, tuple((tuple(a.shape), a.stride(), a.dtype)
+                               for a in args), tuple(sorted(kw.items())))
+            calls = seen.setdefault(key, [])
+            tokens = int(args[4].sum()) if kind == "paged" else 0
+            if not calls or tokens > max(t for t, _, _ in calls):
+                del calls[1:]       # the first call stays
+                calls.append((tokens, tuple(a.clone() for a in args),
+                              dict(kw)))
+            return orig[kind](*args, **kw)
+        return run
+
+    att.flash_attention, att.paged_attention = wrap("flash"), wrap("paged")
+
+    def restore():
+        att.flash_attention = orig["flash"]
+        att.paged_attention = orig["paged"]
+    return restore
+
+
+def path_attention_checks(out: dict, seen: dict) -> list:
+    """K4 and K5 against their plain versions on the inputs a path gave
+    them (``seen``, from :func:`_capture_attention`): each captured call
+    in its own dtype and in the other one (bf16 <-> f32), within
+    ATTN_TOL, timed beside its bound and one SDPA call as in
+    :func:`attention_cases`. The cases join ``out``'s kernel records;
+    returns the failures."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as att
+
+    cases = {"flash": [], "paged": []}
+    captured = [(kind, args, kw) for (kind, _, _), calls in seen.items()
+                for _, args, kw in calls]
+    for kind, args, kw in captured:
+        own = args[0].dtype
+        for dt in (own, torch.float32 if own == torch.bfloat16
+                   else torch.bfloat16):
+            dtype = str(dt).removeprefix("torch.")
+            if kind == "flash":
+                q, k, v = (a.to(dt) for a in args)
+                B, H, S, D = q.shape
+                KH, Sk = k.shape[1], k.shape[2]
+                causal, window = kw.get("causal", True), kw.get("window", 0)
+                qp = torch.arange(S, device=DEVICE)[:, None]
+                kp = torch.arange(Sk, device=DEVICE)[None, :]
+                band = torch.ones((S, Sk), dtype=torch.bool, device=DEVICE)
+                if causal:
+                    band &= kp <= qp
+                if window:
+                    band &= kp > qp - window
+
+                def lib(q=q, k=k, v=v, band=band):
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=band, enable_gqa=True)
+                label = (f"campaign path B={B} S={S}"
+                         + (f" Sk={Sk}" if Sk != S else "")
+                         + f" {'causal' if causal else 'non-causal'}"
+                         + (f" window={window}" if window else "")
+                         + f" H={H} KH={KH} D={D}")
+                bound = att.flash_attention_bound_ms(
+                    B, H, KH, S, Sk, D, causal=causal, window=window,
+                    itemsize=q.element_size())
+                call = (q, k, v)
+            else:
+                q, kpool, vpool = (a.to(dt) for a in args[:3])
+                table, lengths = args[3:]
+                B, H, D = q.shape
+                KH, _, page, _ = kpool.shape
+                mp = table.shape[1]
+                kl, vl = (pool[:, table.long()].permute(1, 0, 2, 3, 4)
+                          .reshape(B, KH, mp * page, D)
+                          for pool in (kpool, vpool))
+                valid = (torch.arange(mp * page, device=DEVICE)[None, :]
+                         < lengths[:, None])[:, None, None, :]
+
+                def lib(q=q, kl=kl, vl=vl, valid=valid):
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], kl, vl, attn_mask=valid,
+                        enable_gqa=True)
+                label = (f"campaign path B={B} pages {mp}x{page} lengths "
+                         f"{','.join(map(str, lengths.tolist()))} "
+                         f"H={H} KH={KH} D={D}")
+                bound = att.paged_attention_bound_ms(
+                    lengths.cpu(), KH, H, D, mp, page,
+                    itemsize=kpool.element_size())
+                call = (q, kpool, vpool, table, lengths)
+            cases[kind].append(_attn_case(att, label, kind, call, kw, dtype,
+                                          bound, lib))
+    failures = []
+    for kind, name in (("flash", "flash_attention"),
+                       ("paged", "paged_attention")):
+        if not cases[kind]:
+            failures.append(f"campaign path: no {name} call captured")
+            continue
+        merge_cases(out, name, cases[kind])
+        failures += [f"kernel {name} on the campaign path's {c['case']} "
+                     f"{c['dtype']}" for c in cases[kind] if not c["ok"]]
+    return failures
+
+
+def phase_campaign(fleet, launches: dict, kern: dict) -> list:
+    """The campaign path. Inline on the card: the cells of TORCH_GRID
+    and the ci campaign's serving cells, with the launch counts set to 0
+    just before and read just after; K4 and K5 against their plain
+    versions on copies of the inputs that run gave them (their records
+    in ``kern`` gain these cases); the same cells inline on the CPU,
+    the torch cells within CPU_GPU_VR_TOL and the serving cells' records
+    (volatile fields stripped) equal. Then the full ci campaign on the
+    card with CAMPAIGN_WORKERS children, started from this process,
+    which holds a CUDA context: every cell must end ok with no gate
+    failure and no consistency violation, the serving cells' records
+    equal to the CPU's and the torch cells within CPU_GPU_VR_TOL of the
+    inline run. Returns the failures."""
+    import torch
+
+    from repro_torch.campaign import (build_report, expand_campaign,
+                                      expand_grid, get_campaign, on_device,
+                                      run_cells)
+    from repro_torch.campaign.registry import TORCH_GRID
+    from repro_torch.campaign.report import strip_volatile
+
+    t_phase = time.perf_counter()
+    failures = []
+    spec = get_campaign(CAMPAIGN)
+    cells, masked, filtered = expand_campaign(spec, verbose=True)
+    path = expand_grid(TORCH_GRID)[0] + [c for c in cells
+                                         if c.engine == "serving"]
+    seen = {}
+    restore = _capture_attention(seen)
+    try:
+        fleet.reset_launches()
+        on_gpu = run_cells(on_device(path, DEVICE), workers=0)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    if not torch.cuda.is_initialized():
+        failures.append("campaign: the parent holds no CUDA context")
+    failures += _path_launches("campaign", {
+        k: fleet.LAUNCHES[k] for k in ("row_draw",) + SERVING_KERNELS},
+        launches)
+    failures += path_attention_checks(kern, seen)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # tiny tensors: threads only add overhead
+    try:
+        on_cpu = run_cells(on_device(path, "cpu"), workers=0)
+    finally:
+        torch.set_num_threads(threads)
+    for g, c in zip(on_gpu, on_cpu):
+        if g["status"] != "ok" or c["status"] != "ok":
+            good = False
+            what = f"{g['status']} / {c['status']} {g.get('error', '')}"
+        elif g["engine"] == "serving":
+            good = strip_volatile(g) == strip_volatile(c)
+            what = f"VR {g['violation_rate']:.6f} records equal: {good}"
+        else:
+            d = abs(g["violation_rate"] - c["violation_rate"])
+            good = d <= CPU_GPU_VR_TOL
+            what = (f"VR cuda {g['violation_rate']:.6f} cpu "
+                    f"{c['violation_rate']:.6f} |dVR| {d:.2e}")
+        log(f"[campaign] inline {g['cell']}: {what} "
+            f"{'ok' if good else 'FAIL'}")
+        if not good:
+            failures.append(f"campaign cell {g['cell']} cuda vs cpu")
+
+    t0 = time.perf_counter()
+    records = run_cells(on_device(cells, DEVICE), workers=CAMPAIGN_WORKERS,
+                        cell_timeout_s=spec.cell_timeout_s)
+    wall = time.perf_counter() - t0
+    report = build_report(spec.name, records, quick=False, masked=masked,
+                          filtered=filtered, campaign_wall_s=wall,
+                          workers=CAMPAIGN_WORKERS)
+    inline_gpu, inline_cpu = _cells_by_id(on_gpu), _cells_by_id(on_cpu)
+    fanned = _cells_by_id(records)
+    for cell in path:
+        r = fanned[cell.cell_id]
+        if r["status"] != "ok":
+            continue                        # a gate failure below
+        if cell.engine == "serving":
+            good = strip_volatile(r) == strip_volatile(
+                inline_cpu[cell.cell_id])
+        else:
+            good = abs(r["violation_rate"] - inline_gpu[cell.cell_id][
+                "violation_rate"]) <= CPU_GPU_VR_TOL
+        if not good:
+            failures.append(f"campaign cell {cell.cell_id}: fanned out on "
+                            f"the card, not as inline")
+    gate = report.gate_failures()
+    failures += [f"campaign gate: {f}" for f in gate]
+    consistency = report.consistency_violations()
+    engines = sorted({r["engine"] for r in records})
+    row = {"campaign": spec.name, "quick": False, "cells": len(records),
+           "ok": len(report.ok), "engines": engines,
+           "workers": CAMPAIGN_WORKERS, "campaign_wall_s": wall,
+           "parent_cuda_initialized": torch.cuda.is_initialized(),
+           "gate_failures": len(gate),
+           "consistency_violations": len(consistency),
+           "cell_walls_s": {r["cell"]: r.get("wall_s") for r in records
+                            if r["engine"] in ("torch", "serving")},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[campaign] {json.dumps(row)} "
+        f"{'ok' if not failures else 'FAIL'}")
+    for f in gate:
+        log(f"[campaign] gate: {f}")
+    return failures
+
+
+def left_processes() -> list[str]:
+    """Processes descended from this one that still exist (running or
+    ended and not yet reaped), read from /proc."""
+    procs = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:
+            continue                        # ended while we looked
+        # "pid (comm) state ppid ...": comm may hold spaces and parens
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        procs[int(d)] = (int(ppid), state, stat[stat.index("(") + 1:
+                                                stat.rindex(")")])
+    ours, grew = {os.getpid()}, True
+    while grew:
+        new = {p for p, (pp, _, _) in procs.items()
+               if pp in ours and p not in ours}
+        ours |= new
+        grew = bool(new)
+    return [f"{p} {procs[p][2]} ({procs[p][1]})"
+            for p in sorted(ours - {os.getpid()})]
+
+
+def stop_processes() -> list:
+    """Stop the campaign's fork server (and the resource tracker it
+    brought up), then fail if any process this run started is left."""
+    if "repro_torch.campaign.executor" in sys.modules:
+        sys.modules["repro_torch.campaign.executor"].shutdown()
+    left = left_processes()
+    log(f"[processes] left at the end: {left or 'none'}")
+    return [f"process left running: {p}" for p in left]
+
+
 # ------------------------------------------------------------------- main
 def _path_launches(path: str, counts: dict, launches: dict,
                    extra: str = "") -> list:
@@ -1947,6 +2224,10 @@ def main(argv=None) -> int:
         gc.collect()
         if not mixed_engine_check()["ok"]:
             failures.append("mixed families engine, card against CPU")
+    if "campaign" in phases:
+        failures += phase_campaign(fleet, launches, kern)
+
+    failures += stop_processes()
 
     record = []
     sources = {name: f"src/repro_torch/csrc/{name}.cu" for name in

@@ -186,8 +186,10 @@ def _nvcc() -> str:
                        "use and need the CUDA toolkit")
 
 
-def _lib_path(name: str, extra: tuple) -> Path:
-    h = hashlib.sha256(" ".join(nvcc_flags(name) + extra).encode())
+def _lib_path(name: str) -> Path:
+    # ``-Xptxas -v`` only reports, so a verbose build makes the same
+    # library: a later plain build (a campaign's child) finds it
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for f in [_SRC_DIR / f"{name}.cu", *sorted(_SRC_DIR.glob("*.cuh"))]:
         h.update(f.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
@@ -200,7 +202,8 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
     loads a stale one. ``verbose`` adds ``-Xptxas -v``, prints what the
     assembler reports (registers, spills) and keeps it in
     :data:`BUILD_LOGS` and beside the library, where a later verbose
-    build that finds the library reads it again."""
+    build that finds the library reads it again (and rebuilds one that
+    a plain build made, which has no such report)."""
     t0 = time.perf_counter()
     extra = ("-Xptxas", "-v") if verbose else ()
     out_dir = build_dir()
@@ -209,10 +212,11 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
     for name in names:
         if name in _LIBS:
             continue
-        path = _lib_path(name, extra)
-        if path.exists():
-            if verbose and path.with_suffix(".log").exists():
-                BUILD_LOGS[name] = path.with_suffix(".log").read_text()
+        path = _lib_path(name)
+        log_path = path.with_suffix(".log")
+        if path.exists() and not (verbose and not log_path.exists()):
+            if verbose:
+                BUILD_LOGS[name] = log_path.read_text()
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *nvcc_flags(name), *extra, "-I", str(_SRC_DIR),
@@ -236,7 +240,7 @@ def build(names=_SOURCES, verbose: bool = False) -> float:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     for name in names:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(_lib_path(name, extra)))
+            lib = ctypes.CDLL(str(_lib_path(name)))
             fn = getattr(lib, _ENTRY[name])
             fn.argtypes = _ARGTYPES[_ENTRY[name]]
             fn.restype = ctypes.c_int

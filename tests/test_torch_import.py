@@ -1,5 +1,6 @@
-"""The port stands alone: importing ``repro_torch`` (the sim path and
-the serving path) loads neither jax nor the JAX package, no port source
+"""The port stands alone: importing ``repro_torch`` (the sim path, the
+serving path, the campaign harness and the benchmarks) loads neither
+jax nor the JAX package, no port source
 imports either, and the GPU engine refuses to run without a card unless
 the caller asks for the CPU."""
 import dataclasses
@@ -23,6 +24,9 @@ import repro_torch.sim.engines.torch_backend
 import repro_torch.kernels.attention, repro_torch.models
 import repro_torch.serving.engine, repro_torch.serving.federation
 import repro_torch.launch.serve, repro_torch.configs
+import repro_torch.campaign, repro_torch.benchmarks.run
+import repro_torch.benchmarks.campaign, repro_torch.benchmarks.federation_bench
+import repro_torch.benchmarks.serving_bench, repro_torch.benchmarks.paper_figs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
