@@ -33,7 +33,19 @@ per source, all at once) and drives the port's three paths:
   reduced tinyllama-1.1b's shapes), then the full ci campaign, full
   mode, fanned out over CAMPAIGN_WORKERS child processes from this
   process, which holds a CUDA context by then: every cell ok, no gate
-  failure, the serving cells' records equal to the CPU's.
+  failure, the serving cells' records equal to the CPU's;
+* training (phase ``train``): full-width tinyllama-1.1b trained
+  TRAIN_STEPS steps (seq 1,024, global batch 8 in 2 microbatches, remat
+  "selective", AdamW on f32 masters) through ``make_train_step``, with
+  no kernel launched (the training route is plain: K4-K7 are
+  forward-only), the step's wall, device time, tokens/s, FLOP share
+  and peak memory, and where its time goes; a resume from an async
+  checkpoint equal to the uninterrupted run; the restored weights
+  served in bf16 through K4 and K5 (the ``handoff`` path, its calls
+  held against the plain versions) with prefill logits close to the
+  training route's; the reduced families' loss and gradients on the
+  card against the CPU in f32; and the kernels' refusal of inputs that
+  require grad.
 
 Each path's launch counts are reset just before it and read just after.
 At the end the campaign's fork server is stopped and no process this
@@ -46,6 +58,7 @@ any failure.
     python3 chip_smoke.py --phases env,recurrent
     python3 chip_smoke.py --phases env,families
     python3 chip_smoke.py --phases env,campaign
+    python3 chip_smoke.py --phases env,train
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -59,6 +72,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,7 +83,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent",
-          "families", "campaign")
+          "families", "campaign", "train")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 SUM_RTOL = 1e-5         # f32 row sums in another order (K1/K2 else exact)
@@ -130,6 +144,31 @@ FAM_MOE_CUT_PROMPT = 128
 # CLI runs it by default (two workers)
 CAMPAIGN = "ci"
 CAMPAIGN_WORKERS = 2
+# training: full-width tinyllama-1.1b at seq 1,024, global batch 8 in 2
+# microbatches, remat "selective" (the config's), TRAIN_STEPS steps of
+# AdamW at a learning rate the Markov source is learned at; the resume
+# check trains RESUME_STEPS uninterrupted against half of them, an async
+# checkpoint, a restore into a fresh state and the other half (total
+# losses within RESUME_RTOL); the card's loss and gradients against the
+# CPU's on the reduced families in f32 (within GRAD_TOL norm-relative a
+# leaf); the restored weights served in bf16 through K4/K5 (prefill
+# logits within LOGIT_TOL × max |logit| of the plain training route)
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_SEQ = 1024
+TRAIN_BATCH = 8
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 10
+TRAIN_TC = dict(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+TRAIN_MIN_DROP = 0.3
+RESUME_STEPS = 6
+RESUME_RTOL = 1e-6
+TRAIN_CPU_ARCHS = ("tinyllama-1.1b", "olmoe-1b-7b", "rwkv6-3b",
+                   "zamba2-2.7b", "whisper-small", "llava-next-34b")
+GRAD_TOL = 1e-4
+LOSS_RTOL = 1e-5
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, 700 W)
+BF16_PEAK_FLOPS = 989e12
+ALL_KERNELS = FLEET_KERNELS + SERVING_KERNELS + ("rwkv6", "ssd")
 
 
 def log(msg: str) -> None:
@@ -1870,7 +1909,8 @@ def _capture_attention(seen: dict):
     return restore
 
 
-def path_attention_checks(out: dict, seen: dict) -> list:
+def path_attention_checks(out: dict, seen: dict,
+                          path: str = "campaign") -> list:
     """K4 and K5 against their plain versions on the inputs a path gave
     them (``seen``, from :func:`_capture_attention`): each captured call
     in its own dtype and in the other one (bf16 <-> f32), within
@@ -1906,7 +1946,7 @@ def path_attention_checks(out: dict, seen: dict) -> list:
                 def lib(q=q, k=k, v=v, band=band):
                     return F.scaled_dot_product_attention(
                         q, k, v, attn_mask=band, enable_gqa=True)
-                label = (f"campaign path B={B} S={S}"
+                label = (f"{path} path B={B} S={S}"
                          + (f" Sk={Sk}" if Sk != S else "")
                          + f" {'causal' if causal else 'non-causal'}"
                          + (f" window={window}" if window else "")
@@ -1931,7 +1971,7 @@ def path_attention_checks(out: dict, seen: dict) -> list:
                     return F.scaled_dot_product_attention(
                         q[:, :, None], kl, vl, attn_mask=valid,
                         enable_gqa=True)
-                label = (f"campaign path B={B} pages {mp}x{page} lengths "
+                label = (f"{path} path B={B} pages {mp}x{page} lengths "
                          f"{','.join(map(str, lengths.tolist()))} "
                          f"H={H} KH={KH} D={D}")
                 bound = att.paged_attention_bound_ms(
@@ -1944,10 +1984,10 @@ def path_attention_checks(out: dict, seen: dict) -> list:
     for kind, name in (("flash", "flash_attention"),
                        ("paged", "paged_attention")):
         if not cases[kind]:
-            failures.append(f"campaign path: no {name} call captured")
+            failures.append(f"{path} path: no {name} call captured")
             continue
         merge_cases(out, name, cases[kind])
-        failures += [f"kernel {name} on the campaign path's {c['case']} "
+        failures += [f"kernel {name} on the {path} path's {c['case']} "
                      f"{c['dtype']}" for c in cases[kind] if not c["ok"]]
     return failures
 
@@ -2058,6 +2098,468 @@ def phase_campaign(fleet, launches: dict, kern: dict) -> list:
     return failures
 
 
+# ---------------------------------------------------------------- training
+def _train_setup(cfg, steps: int):
+    """The trainable model of ``cfg`` on the card, the train step at
+    TRAIN_TC with TRAIN_MICROBATCHES, and ``steps`` batches of the
+    port's synthetic pipeline (TRAIN_SEQ × TRAIN_BATCH), made before any
+    timing and moved to the card."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import make_pipeline, to_device
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import make_train_step
+
+    model = build_model(cfg, device=DEVICE, trainable=True)
+    tc = TrainConfig(microbatches=TRAIN_MICROBATCHES, **TRAIN_TC)
+    pipe = make_pipeline(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train"), seed=0)
+    t0 = time.perf_counter()
+    batches = [to_device(pipe.batch(i), DEVICE) for i in range(steps)]
+    log(f"[train] {steps} batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"made in {time.perf_counter() - t0:.2f} s (CPU) and moved")
+    return model, make_train_step(model, tc), batches
+
+
+def model_flops_per_token(cfg, params) -> float:
+    """Training FLOPs a token: 6·N for the N weights of ``params`` that
+    multiply (every weight but an untied input embedding table, which is
+    a lookup) plus the attention scores and their product with V,
+    6·L·H·hd·S over the causal half of S keys (forward 2·2·H·hd·S/2,
+    backward twice that). Recomputation is not counted."""
+    n = sum(p.numel() for p in params.parameters())
+    if not cfg.tie_embeddings:
+        n -= params.tok.embed.numel()
+    return 6 * n + 6 * cfg.num_layers * cfg.q_dim * TRAIN_SEQ
+
+
+#: substrings of the names of cuBLAS's and CUTLASS's matrix-product kernels
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
+
+
+def profile_step(step_fn, state, batch, top: int = 12) -> dict:
+    """One more train step under torch.profiler (it updates ``state``,
+    which the caller then drops): the device time of the step's
+    kernels, of the matrix products among them and of the ``top``
+    kernels by time, with their counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as e:
+        log(f"[train] profile: profiler unavailable ({e})")
+        return {}
+    ks = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+          for e in prof.key_averages()]
+    ks = sorted((k for k in ks if k[1] > 0), key=lambda k: -k[1])
+    gemms = [k for k in ks if any(g in k[0].lower() for g in GEMM_NAMES)]
+    out = {"kernels_ms": sum(k[1] for k in ks),
+           "gemm_ms": sum(k[1] for k in gemms),
+           # cuBLAS names its f32 products by their operand types
+           "gemm_f32_ms": sum(k[1] for k in gemms if "f32f32" in k[0]),
+           "launches": sum(k[2] for k in ks),
+           "top": [{"name": k[0][:90], "ms": k[1], "count": k[2]}
+                   for k in ks[:top]]}
+    log(f"[train] profile {json.dumps(out)}")
+    return out
+
+
+def train_full_width(fleet, launches: dict) -> tuple[list, dict, object]:
+    """TRAIN_STEPS steps of full-width TRAIN_ARCH through
+    ``make_train_step``, the launch counts set to 0 just before and read
+    just after (every kernel must stay at 0: the training route is
+    plain); per step the loss, lr and grad norm, the wall (host clock
+    around the step and a read of its loss) and the device time (CUDA
+    events around it); the peak memory. Returns (failures, row, cfg)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = get_config(TRAIN_ARCH)
+    model, step_fn, batches = _train_setup(cfg, TRAIN_STEPS)
+    state = init_train_state(model, params=model.params)
+    n_params = sum(p.numel() for p in model.params.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet.reset_launches()
+    steps = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step_fn(state, batch)
+        end.record()
+        m = {k: float(v) for k, v in m.items()}
+        wall = 1e3 * (time.perf_counter() - t0)
+        end.synchronize()
+        steps.append(dict(step=i, **m, wall_ms=wall,
+                          device_ms=start.elapsed_time(end)))
+        log(f"[train] step {i} loss {m['loss']:.4f} total "
+            f"{m['total_loss']:.4f} lr {m['lr']:.3e} grad_norm "
+            f"{m['grad_norm']:.4f} wall {wall:.1f} ms device "
+            f"{steps[-1]['device_ms']:.1f} ms")
+    torch.cuda.synchronize()
+    counts = dict(fleet.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for k in ALL_KERNELS:
+        launches.setdefault(k, {})["train"] = counts[k]
+    log(f"[launches] train path: {json.dumps(counts)}")
+    failures = [f"train step launched kernel {k} {n} times"
+                for k, n in counts.items() if n]
+    profile_step(step_fn, state, batches[-1])
+    steady = steps[1:]
+    wall = statistics.median(s["wall_ms"] for s in steady)
+    dev = statistics.median(s["device_ms"] for s in steady)
+    flops = model_flops_per_token(cfg, state.params) * tokens
+    losses = [s["loss"] for s in steps]
+    row = {"arch": cfg.name, "params": n_params, "seq": TRAIN_SEQ,
+           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICROBATCHES,
+           "remat": cfg.remat, "steps": len(steps), "first_loss": losses[0],
+           "last_loss": losses[-1], "step_wall_ms": wall,
+           "step_device_ms": dev, "first_step_wall_ms": steps[0]["wall_ms"],
+           "tokens_per_s": tokens / (wall / 1e3),
+           "model_flops_per_step": flops,
+           "bf16_peak_share": flops / (wall / 1e3) / BF16_PEAK_FLOPS,
+           "max_memory_allocated_gb": peak / 1e9, "card": smi_line()}
+    log(f"[train] {json.dumps(row)}")
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"train: a loss is not finite: {losses}")
+    if not losses[-1] <= losses[0] - TRAIN_MIN_DROP:
+        failures.append(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                        f"less than {TRAIN_MIN_DROP} down")
+    del state, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, row, cfg
+
+
+def train_breakdown(cfg, row: dict) -> dict:
+    """Where a full-width step's time goes, each piece timed alone with
+    CUDA events at the step's shapes (a microbatch: TRAIN_BATCH /
+    TRAIN_MICROBATCHES rows of TRAIN_SEQ) and scaled by how often a step
+    runs it: the plain f32 chunked attention (forward, and forward plus
+    backward: under remat a layer's forward runs twice, L × microbatches
+    times), the f32 → bf16 casts of every weight (forward, recompute,
+    and the backward's cast of each gradient back, per microbatch), the
+    final norm, logits and cross entropy with their backward (per
+    microbatch) and the AdamW update (once). The rest of the step's
+    device time is the products and the other elementwise work."""
+    import torch
+
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.layers import apply_norm, cross_entropy, unembed
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+
+    B, S, L = TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, cfg.num_layers
+    n_mb = TRAIN_MICROBATCHES
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def rand(*shape, dtype=torch.bfloat16, grad=True):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(
+            dtype).requires_grad_(grad)
+    q = rand(B, S, cfg.num_heads, cfg.head_dim)
+    k = rand(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = rand(B, S, cfg.num_kv_heads, cfg.head_dim)
+    go = rand(B, S, cfg.num_heads, cfg.head_dim, grad=False)
+
+    def attn_fwd():
+        with torch.no_grad():
+            chunked_attention(q, k, v, chunk=cfg.attn_chunk)
+
+    def attn_fwd_bwd():
+        o = chunked_attention(q, k, v, chunk=cfg.attn_chunk)
+        torch.autograd.grad(o, (q, k, v), go)
+    model = build_model(cfg, device=DEVICE, trainable=True)
+    weights = list(model.params.parameters())
+
+    def casts():
+        for w in weights:
+            w.detach().to(torch.bfloat16)
+    x = rand(B, S, cfg.d_model)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=DEVICE)
+
+    def logits_loss():
+        lg = unembed(model.params.tok, apply_norm(model.params.ln_f, x, cfg),
+                     cfg)
+        loss, _ = cross_entropy(lg, labels)
+        torch.autograd.grad(loss, (x,))
+    named = dict(model.params.named_parameters())
+    grads = {n: torch.randn_like(t) * 1e-3 for n, t in named.items()}
+    opt = init_opt_state(named)
+    tc = TrainConfig(**TRAIN_TC)
+
+    def adamw():
+        adamw_update(named, grads, opt, tc)
+    out = {"attention_fwd_ms": cuda_ms(attn_fwd, reps=5),
+           "attention_fwd_bwd_ms": cuda_ms(attn_fwd_bwd, reps=5),
+           "weight_casts_ms": cuda_ms(casts, reps=5),
+           "logits_loss_fwd_bwd_ms": cuda_ms(logits_loss, reps=5),
+           "adamw_ms": cuda_ms(adamw, reps=3)}
+    per_step = {
+        "attention": L * n_mb * (out["attention_fwd_ms"]
+                                 + out["attention_fwd_bwd_ms"]),
+        "weight_casts": 3 * n_mb * out["weight_casts_ms"],
+        "logits_loss": n_mb * out["logits_loss_fwd_bwd_ms"],
+        "adamw": out["adamw_ms"]}
+    per_step["rest"] = row["step_device_ms"] - sum(per_step.values())
+    out["per_step_ms"] = per_step
+    out["share_of_step"] = {k: v / row["step_device_ms"]
+                            for k, v in per_step.items()}
+    log(f"[train] breakdown {json.dumps(out)}")
+    del model, weights, named, grads, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume(cfg, ckpt_dir: Path) -> tuple[list, object, object]:
+    """RESUME_STEPS uninterrupted steps against half of them, an async
+    checkpoint, a restore into a fresh state (other weights) and the
+    other half, under deterministic algorithms: the last total losses
+    within RESUME_RTOL. Returns (failures, the model, the restored and
+    trained state)."""
+    import torch
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_step import init_train_state
+
+    failures = []
+    half = RESUME_STEPS // 2
+    torch.use_deterministic_algorithms(True)
+    try:
+        model, step_fn, batches = _train_setup(cfg, RESUME_STEPS)
+        state = init_train_state(model, seed=0)
+        for batch in batches:
+            state, m = step_fn(state, batch)
+        uninterrupted = float(m["total_loss"])
+        del state
+        state = init_train_state(model, seed=0)
+        for batch in batches[:half]:
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        writer = ckpt.save(str(ckpt_dir), half, state, async_=True)
+        host_s = time.perf_counter() - t0
+        del state
+        fresh = init_train_state(model, seed=1)
+        writer.join()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        start, state = ckpt.restore(str(ckpt_dir), fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for batch in batches[start:]:
+            state, m = step_fn(state, batch)
+        resumed = float(m["total_loss"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    size = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    d = abs(resumed - uninterrupted) / abs(uninterrupted)
+    ok = start == half and d <= RESUME_RTOL
+    log(f"[train] resume: uninterrupted total_loss {uninterrupted:.7f}, "
+        f"resumed from step {start} {resumed:.7f} (rel diff {d:.2e}, tol "
+        f"{RESUME_RTOL}); checkpoint {size / 1e9:.2f} GB: host copy "
+        f"{host_s:.2f} s, written {write_s:.2f} s after save, restored in "
+        f"{restore_s:.2f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("train: resumed run differs from the uninterrupted "
+                        "one")
+    del batches, step_fn, fresh
+    gc.collect()
+    return failures, model, state
+
+
+def train_card_vs_cpu(fleet) -> list:
+    """Each reduced family in f32: the same weights (drawn on the CPU,
+    carried to the card with ``params_to_jax`` / ``params_from_jax``)
+    and the port's own batch, loss and every gradient leaf on the card
+    against the CPU; no kernel may launch."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import make_pipeline, to_device
+    from repro_torch.models import build_model, params_from_jax, params_to_jax
+    from repro_torch.training.train_step import make_loss_and_grad
+
+    failures = []
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = get_reduced(arch, dtype="float32")
+        batch = make_pipeline(cfg, ShapeConfig("t", 32, 4, "train"),
+                              seed=0).batch(0)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            model = build_model(cfg, device=dev, trainable=True)
+            if dev == "cpu":
+                tree = params_to_jax(model.params)
+                params = model.params
+            else:
+                params = params_from_jax(cfg, tree, device=dev,
+                                         trainable=True)
+            fleet.reset_launches()
+            loss, _, grads = make_loss_and_grad(model, TrainConfig())(
+                params, to_device(batch, dev))
+            torch.cuda.synchronize()
+            out[dev] = (float(loss), {k: g.cpu().double()
+                                      for k, g in grads.items()})
+            if dev != "cpu" and any(fleet.LAUNCHES.values()):
+                failures.append(f"train: {arch} gradients launched "
+                                f"{fleet.LAUNCHES}")
+        (lc, gc_), (lg, gg) = out["cpu"], out[DEVICE]
+        errs = {k: float((gg[k] - g).norm() / g.norm().clamp(min=1e-30))
+                for k, g in gc_.items()}
+        worst = max(errs, key=errs.get)
+        dl = abs(lg - lc) / abs(lc)
+        ok = dl <= LOSS_RTOL and errs[worst] <= GRAD_TOL
+        log(f"[train] card vs cpu {arch} f32: loss {lc:.6f} / {lg:.6f} "
+            f"(rel {dl:.2e}), worst gradient leaf {worst} {errs[worst]:.2e} "
+            f"of {len(errs)} (tol {GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train: {arch} card vs cpu")
+    return failures
+
+
+def train_guard(fleet) -> list:
+    """K4, K5, K6 and K7 each given a CUDA input that requires grad must
+    raise, and launch nothing."""
+    import torch
+
+    from repro_torch.kernels import attention as att
+    from repro_torch.kernels.rwkv6 import rwkv6_forward
+    from repro_torch.kernels.ssd import ssd_forward
+
+    def g(*shape, dtype=torch.bfloat16, grad=False):
+        return torch.randn(shape, device=DEVICE).to(dtype).requires_grad_(
+            grad)
+    table = torch.arange(4, dtype=torch.int32, device=DEVICE).reshape(1, 4)
+    calls = {
+        "flash_attention": lambda: att.flash_attention(
+            g(1, 4, 64, 64, grad=True), g(1, 4, 64, 64), g(1, 4, 64, 64)),
+        "paged_attention": lambda: att.paged_attention(
+            g(1, 4, 64), g(4, 4, 16, 64, grad=True), g(4, 4, 16, 64), table,
+            torch.full((1,), 60, dtype=torch.int32, device=DEVICE)),
+        "rwkv6": lambda: rwkv6_forward(
+            g(1, 2, 64, 64, grad=True), g(1, 2, 64, 64), g(1, 2, 64, 64),
+            torch.rand((1, 2, 64, 64), device=DEVICE),
+            g(2, 64, dtype=torch.float32)),
+        "ssd": lambda: ssd_forward(
+            g(1, 2, 64, 16, grad=True),
+            torch.rand((1, 2, 64), device=DEVICE),
+            g(2, dtype=torch.float32), g(1, 64, 16), g(1, 64, 16)),
+    }
+    failures = []
+    for name, call in calls.items():
+        fleet.reset_launches()
+        try:
+            call()
+            why = "no error"
+        except RuntimeError as e:
+            why = str(e) if "forward-only" not in str(e) else None
+        torch.cuda.synchronize()
+        ok = why is None and not any(fleet.LAUNCHES.values())
+        log(f"[train] guard {name}: an input that requires grad "
+            f"{'raises' if why is None else 'gave ' + why}"
+            f"{'' if ok else ' FAIL'}")
+        if not ok:
+            failures.append(f"train: {name} guard")
+    return failures
+
+
+def train_handoff(fleet, launches: dict, kern: dict, model,
+                  state) -> list:
+    """The restored, trained weights as serving weights (``params_to_jax``
+    then ``params_from_jax`` in bf16), a SERVE_PROMPT-token prefill and
+    SERVE_NEW greedy decode steps through K4 and K5 (the ``handoff``
+    path's launch counts, set to 0 just before and read just after);
+    the prefill's last logits against the training route's logits
+    (``logits_fn`` on the f32 masters, plain attention) at that
+    position; K4 and K5 against their plain versions on copies of the
+    inputs this path gave them."""
+    import torch
+
+    from repro_torch.models import params_from_jax, params_to_jax
+    from repro_torch.models.kvcache import grow_cache
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    served = params_from_jax(cfg, params_to_jax(state.params), device=DEVICE)
+    log(f"[train] handoff: trained weights to serving bf16 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, min(cfg.vocab_size, 4096), (1, SERVE_PROMPT),
+                           generator=gen).to(DEVICE)
+    seen = {}
+    restore = _capture_attention(seen)
+    try:
+        fleet.reset_launches()
+        logits, cache = model.prefill_fn(served, {"tokens": tokens})
+        cache = grow_cache(cfg, cache, SERVE_PROMPT + SERVE_NEW + 1)
+        prefill_logits = logits.float()
+        token = logits.argmax(-1)
+        pos = torch.full((1,), SERVE_PROMPT, dtype=torch.int64,
+                         device=DEVICE)
+        finite = bool(torch.isfinite(logits).all())
+        for _ in range(SERVE_NEW):
+            logits, cache = model.decode_fn(served, cache, token, pos)
+            finite &= bool(torch.isfinite(logits).all())
+            token, pos = logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    failures = _path_launches("handoff", {
+        k: fleet.LAUNCHES[k] for k in SERVING_KERNELS}, launches)
+    with torch.enable_grad():
+        plain = model.logits_fn(state.params, {"tokens": tokens})[:, -1]
+    plain = plain.detach().float()
+    err = float((prefill_logits - plain).abs().max())
+    scale = float(plain.abs().max())
+    ok = finite and err <= LOGIT_TOL * scale
+    log(f"[train] handoff: prefill {SERVE_PROMPT} + {SERVE_NEW} decode "
+        f"steps on K4/K5, logits finite {finite}; last prefill logits vs "
+        f"the training route: max err {err:.4g} of max |logit| "
+        f"{scale:.4g} (tol {LOGIT_TOL} x) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("train: handoff logits")
+    failures += path_attention_checks(kern, seen, path="handoff")
+    return failures
+
+
+def phase_train(fleet, launches: dict, kern: dict) -> list:
+    """The training path (see the constants above TRAIN_ARCH). Returns
+    the failures."""
+    import torch
+
+    t0 = time.perf_counter()
+    failures, row, cfg = train_full_width(fleet, launches)
+    train_breakdown(cfg, row)
+    ckpt_dir = ROOT / "build" / "train_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        f, model, state = train_resume(cfg, ckpt_dir)
+        failures += f
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    failures += train_handoff(fleet, launches, kern, model, state)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures += train_card_vs_cpu(fleet)
+    failures += train_guard(fleet)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if not failures else 'FAIL: ' + '; '.join(failures)}")
+    return failures
+
+
 def left_processes() -> list[str]:
     """Processes descended from this one that still exist (running or
     ended and not yet reaped), read from /proc."""
@@ -2112,6 +2614,10 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    if "train" in phases:
+        # deterministic cuBLAS for the resume check (read when cuBLAS
+        # starts, so before any work on the card)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2226,6 +2732,8 @@ def main(argv=None) -> int:
             failures.append("mixed families engine, card against CPU")
     if "campaign" in phases:
         failures += phase_campaign(fleet, launches, kern)
+    if "train" in phases:
+        failures += phase_train(fleet, launches, kern)
 
     failures += stop_processes()
 
@@ -2241,7 +2749,8 @@ def main(argv=None) -> int:
         "rwkv6": "src/repro/kernels/rwkv6.py:25",
         "ssd": "src/repro/kernels/ssd.py:23"}
     # a kernel's ``launches`` is the count on the path of the slice that
-    # ported it, where that path ran; ``launches_by_path`` has each path
+    # ported it, where that path ran (else the most any path made);
+    # ``launches_by_path`` has each path (``train``: 0 for every kernel)
     home = dict.fromkeys(FLEET_KERNELS, "simulator")
     home.update(dict.fromkeys(SERVING_KERNELS, "serving"))
     home.update(dict.fromkeys(RECURRENT_KERNELS, "recurrent"))
@@ -2250,7 +2759,7 @@ def main(argv=None) -> int:
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
                  "launches": by_path.get(home[name],
-                                         next(iter(by_path.values()), 0)),
+                                         max(by_path.values(), default=0)),
                  "launches_by_path": by_path,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "event_ms": r["event_ms"], "ms_source": r["ms_source"],

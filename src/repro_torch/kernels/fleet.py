@@ -295,10 +295,10 @@ def _ptr(t):
 
 
 # ------------------------------------------------------------ threefry
-def threefry_bits(k0: torch.Tensor, k1: torch.Tensor, c0, c1) -> torch.Tensor:
-    """``x0 ^ x1`` of threefry2x32-20 on int64 tensors holding 32-bit
-    words (broadcasting); the plain twin of ``threefry2x32_xor`` in
-    ``csrc/threefry.cuh``."""
+def threefry2x32(k0, k1, c0, c1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two output words of threefry2x32-20 for key (k0, k1) and
+    counter (c0, c1), on int64 tensors (or ints) holding 32-bit words,
+    broadcasting."""
     k2 = k0 ^ k1 ^ 0x1BD11BDA
     ks = (k0, k1, k2)
     x0 = (c0 + k0) & _M32
@@ -309,6 +309,14 @@ def threefry_bits(k0: torch.Tensor, k1: torch.Tensor, c0, c1) -> torch.Tensor:
             x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def threefry_bits(k0: torch.Tensor, k1: torch.Tensor, c0, c1) -> torch.Tensor:
+    """``x0 ^ x1`` of threefry2x32-20 on int64 tensors holding 32-bit
+    words (broadcasting); the plain twin of ``threefry2x32_xor`` in
+    ``csrc/threefry.cuh``."""
+    x0, x1 = threefry2x32(k0, k1, c0, c1)
     return x0 ^ x1
 
 

@@ -2,17 +2,17 @@
 sliding-window attention, and decode attention over dense caches.
 
 Routes, by the device of the tensors (the port's rule, as in
-:mod:`repro_torch.kernels.fleet`):
+:mod:`repro_torch.kernels.fleet`) and by whether autograd records:
 
-* prefill, :func:`attention` — on CUDA always the flash kernel K4
+* prefill, :func:`attention` — on CUDA the flash kernel K4
   (:func:`repro_torch.kernels.attention.flash_attention`), with the
-  window when the config is ``swa``; on the CPU
-  :func:`swa_attention` or :func:`chunked_attention`, the reference's
-  own non-Pallas path;
+  window when the config is ``swa``; on the CPU, and wherever autograd
+  records (training: K4 is forward-only), :func:`swa_attention` or
+  :func:`chunked_attention`, the reference's own non-Pallas path;
 * cross attention (the encoder-decoder's), :func:`cross_attention` —
   non-causal, the decoder's S queries over the encoder's Se keys: on
-  CUDA K4 with ``causal=False``, on the CPU the reference's
-  :func:`chunked_attention`;
+  CUDA K4 with ``causal=False``; on the CPU and under autograd the
+  reference's :func:`chunked_attention`;
 * decode, :func:`decode_attention` — always the paged kernel K5 over the
   dense cache seen as a page pool with the identity page table (slot b
   owns pages b·Smax/page … (b+1)·Smax/page − 1, ``lengths = cache_len``);
@@ -32,7 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import attention as kern
 from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
-                                       rope_angles)
+                                       recording, rope_angles)
 
 NEG_INF = -1e30
 
@@ -186,7 +186,7 @@ def cross_attention(q, k, v, cfg: ModelConfig):
     """Non-causal attention of q (B, S, H, hd) over the encoder's k/v
     (B, Se, KH, hd). The reference's cross attention takes its default
     f32 probabilities, whatever ``attn_bf16_probs`` says."""
-    if q.is_cuda:
+    if q.is_cuda and not recording(q, k, v):
         return kern.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2),
                                     causal=False).transpose(1, 2)
@@ -197,7 +197,7 @@ def attention(p: Attention, x, cfg: ModelConfig, positions, *, causal=True):
     """Full attention block for prefill. Returns (out, (k, v))."""
     q, k, v = qkv_proj(p, x, cfg, positions)
     window = cfg.window if cfg.attention == "swa" else 0
-    if q.is_cuda:
+    if q.is_cuda and not recording(q, k, v):
         o = kern.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  window=window).transpose(1, 2)

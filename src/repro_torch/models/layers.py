@@ -2,11 +2,14 @@
 
 The JAX package's functional layers with weights held in ``nn.Module``
 containers. The dtype rules are the reference's: compute runs in
-``cfg.dtype`` (bf16) with norms, RoPE and logits in f32. Matrices are
-held in ``cfg.dtype`` once loaded — the reference casts its f32 params
-with ``.astype(dt)`` on every call, which gives the same numbers — and
-norm weights in ``param_dtype``. Init draws from an explicit
-``torch.Generator`` (the generator's device is where the draws run).
+``cfg.dtype`` (bf16) with norms, RoPE and logits in f32. A serving
+model holds its matrices in ``cfg.dtype`` once loaded — the reference
+casts its f32 params with ``.astype(dt)`` on every call, which gives the
+same numbers — and norm weights in ``param_dtype``, all frozen. A
+trainable model holds every weight in ``param_dtype`` (f32 masters
+that require grad) and casts at each use, as the reference does. Init
+draws from an explicit ``torch.Generator`` (the generator's device is
+where the draws run).
 """
 from __future__ import annotations
 
@@ -27,6 +30,15 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def recording(*tensors) -> bool:
+    """True when autograd records an operation on one of ``tensors``.
+    The kernels K4-K7 are forward-only (their outputs have no
+    ``grad_fn``), so the model then takes the plain differentiable
+    functions, as the reference trains on its plain jnp path."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # ---------------------------------------------------------------- init

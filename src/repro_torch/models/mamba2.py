@@ -7,8 +7,10 @@ a_t = -exp(A_log)·dt_t,
 The JAX package's ``repro.models.mamba2`` with weights in an
 ``nn.Module``. Its ``ssd_chunked`` is the pure-JAX analogue of the SSD
 kernel; here it goes through :func:`repro_torch.kernels.ssd.ssd_forward`
-— the kernel K7 on CUDA, the plain chunked version on the CPU — with
-the reference's contract on the sequence length. Weights the reference
+— the kernel K7 on CUDA, the plain chunked version on the CPU — or,
+where autograd records (K7 is forward-only), through the differentiable
+plain version on any device, with the reference's contract on the
+sequence length. Weights the reference
 casts to f32 where it uses them (``a_log``, ``dt_bias``, the norm scale)
 are held in ``param_dtype``, the rest in ``cfg.dtype``.
 """
@@ -21,9 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd import CHUNK, ssd_forward
+from repro_torch.kernels.ssd import CHUNK, ssd_forward, ssd_forward_plain
 from repro_torch.models.layers import (cdtype, const_init, dense_init,
-                                       frozen, normal_init, pdtype, rms_norm)
+                                       frozen, normal_init, pdtype, recording,
+                                       rms_norm)
 
 
 class Mamba2(nn.Module):
@@ -73,14 +76,17 @@ def _causal_conv(p: Mamba2, xBC, cfg: ModelConfig, conv_state=None):
 
 
 def ssd_chunked(xh, dt, a_log, Bm, Cm, *, chunk=CHUNK, init_state=None):
-    """Chunked SSD scan: K7 on CUDA, the plain chunked version on the CPU.
+    """Chunked SSD scan: K7 on CUDA, the plain chunked version on the CPU
+and under autograd.
 
     xh (B,S,H,P); dt (B,S,H) f32 post-softplus; a_log (H,);
     Bm/Cm (B,S,N). S must be a multiple of ``min(chunk, S)``. Returns
     (y (B,S,H,P), final_state (B,H,P,N) f32).
     """
-    y, s = ssd_forward(xh.transpose(1, 2), dt.transpose(1, 2), a_log, Bm,
-                       Cm, chunk=chunk, init_state=init_state)
+    run = (ssd_forward_plain
+           if recording(xh, dt, a_log, Bm, Cm, init_state) else ssd_forward)
+    y, s = run(xh.transpose(1, 2), dt.transpose(1, 2), a_log, Bm, Cm,
+               chunk=chunk, init_state=init_state)
     return y.transpose(1, 2), s
 
 

@@ -1,17 +1,26 @@
-"""build_model(cfg) → Model: weights / prefill / decode / cache specs.
+"""build_model(cfg) → Model: weights / loss / prefill / decode / specs.
 
 The JAX package's ``_build_decoder``, ``_build_rwkv``, ``_build_hybrid``
 and ``_build_encdec`` on torch: the dense and MoE decoders, RWKV-6, the
 hybrid Mamba-2 + shared-attention stack (zamba2) and the
 encoder-decoder (whisper, whose conv frontend is a stub: ``frames``
-come precomputed). The vision stub (llava) prefills from precomputed
-``embeds`` in place of tokens; decode starts from tokens.
+come precomputed). The vision stub (llava) trains and prefills from
+precomputed ``embeds`` in place of tokens; decode starts from tokens.
+
+``build_model(cfg, trainable=True)`` holds f32 master weights that
+require grad (:mod:`repro_torch.models.layers`); ``loss_fn`` is the
+reference's (``loss + 0.01·aux``, metrics ``loss``, ``aux``, ``ntok``)
+and, while autograd records, runs every attention and recurrence on its
+plain differentiable version, never on the forward-only kernels.
 :func:`params_from_jax` loads the reference's ``init_params`` tree (as
 numpy arrays, layers stacked on the leading axes) into the port's
-weights.
+weights, frozen for serving or trainable; :func:`params_to_jax` gives
+that tree back from the port's weights, which is how a checkpoint is
+laid out and how trained weights reach a serving model.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable
@@ -20,12 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.fleet import check_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.kvcache import cache_specs
+from repro_torch.models.kvcache import TensorSpec, cache_specs
 from repro_torch.models.layers import (Embedding, Norm, apply_norm, cdtype,
-                                       dense_init, embed, unembed)
+                                       cross_entropy, dense_init, embed,
+                                       unembed)
 
 
 class Decoder(nn.Module):
@@ -57,6 +67,17 @@ class Decoder(nn.Module):
         self.ln_f = Norm(cfg, device)
 
 
+def _weights(cfg: ModelConfig, gen: torch.Generator, dev,
+             trainable: bool) -> Decoder:
+    """Frozen serving weights, or trainable ones: every weight built in
+    ``param_dtype`` (the compute dtype stays ``cfg.dtype``), requiring
+    grad."""
+    if not trainable:
+        return Decoder(cfg, gen, dev)
+    master = dataclasses.replace(cfg, dtype=cfg.param_dtype)
+    return Decoder(master, gen, dev).requires_grad_(True)
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -64,11 +85,56 @@ class Model:
     prefill_fn: Callable[..., Any]       # (params, batch) -> (last_logits, cache)
     decode_fn: Callable[..., Any]        # (params, cache, token, pos) -> (logits, cache)
     cache_specs: Callable[..., Any]      # (batch, max_len) -> {name: TensorSpec}
+    loss_fn: Callable[..., Any]          # (params, batch) -> (loss, metrics)
+    logits_fn: Callable[..., Any]        # (params, batch) -> f32 logits (B, S, V)
+    input_specs: Callable[..., Any]      # (ShapeConfig) -> {name: TensorSpec}
+    init_params: Callable[..., Any]      # (seed) -> fresh weights like params
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _BUILD_BY_FAMILY:
         raise ValueError(f"unknown family {cfg.family}")
+
+
+def _lm_logits(params: Decoder, x, cfg: ModelConfig):
+    return unembed(params.tok, apply_norm(params.ln_f, x, cfg), cfg)
+
+
+def _lm_loss(logits, batch, aux):
+    """The reference's ``_lm_loss`` on the logits: (loss + 0.01·aux,
+    {"loss", "aux", "ntok"})."""
+    loss, ntok = cross_entropy(logits, batch["labels"].long(),
+                               batch.get("mask"))
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux, "ntok": ntok}
+
+
+def _no_aux(x):
+    return x.new_zeros((), dtype=torch.float32)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """{name: TensorSpec} of the batch of ``shape.kind``: "train"
+    (tokens, or the vision stub's ``embeds``, then ``labels``; the
+    encoder-decoder's ``frames`` first), "prefill" (the same without
+    labels) or "decode" (``token``, ``pos`` and the ``cache`` specs),
+    as the reference's ``input_specs``. Token ids are int64, the
+    port's index dtype (the reference's are int32)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"token": TensorSpec((B,), torch.int64, 0),
+                "pos": TensorSpec((B,), torch.int64, 0),
+                "cache": cache_specs(cfg, B, S)}
+    d = {}
+    if cfg.is_encoder_decoder:
+        Se = max(S // cfg.encoder_seq_ratio, 1)
+        d["frames"] = TensorSpec((B, Se, cfg.d_model), torch.bfloat16, 0, 1)
+    if cfg.frontend == "vision":
+        d["embeds"] = TensorSpec((B, S, cfg.d_model), torch.bfloat16, 0, 1)
+    else:
+        d["tokens"] = TensorSpec((B, S), torch.int64, 0, 1)
+    if shape.kind == "train":
+        d["labels"] = TensorSpec((B, S), torch.int64, 0, 1)
+    return d
 
 
 def _inputs_to_embeds(params: Decoder, batch, cfg: ModelConfig):
@@ -89,14 +155,34 @@ def _positions(x):
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",
-                generator: torch.Generator | None = None) -> Model:
+                generator: torch.Generator | None = None,
+                trainable: bool = False) -> Model:
     """The model of ``cfg``'s family on ``device`` with weights drawn
-    from ``generator`` (a fresh one seeded 0 on ``device`` when None)."""
+    from ``generator`` (a fresh one seeded 0 on ``device`` when None):
+    frozen, matrices in ``cfg.dtype``, for serving; with ``trainable``
+    f32 masters that require grad."""
     _check_family(cfg)
     dev = check_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    return _BUILD_BY_FAMILY[cfg.family](cfg, Decoder(cfg, generator, dev))
+
+    def init_params(seed: int = 0) -> Decoder:
+        """Fresh weights drawn from ``seed`` on the model's device."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return _weights(cfg, gen, dev, trainable)
+
+    params = (init_params() if generator is None
+              else _weights(cfg, generator, dev, trainable))
+    prefill_fn, decode_fn, trunk = _BUILD_BY_FAMILY[cfg.family](cfg)
+
+    def logits_fn(params: Decoder, batch):
+        return _lm_logits(params, trunk(params, batch)[0], cfg)
+
+    def loss_fn(params: Decoder, batch):
+        x, aux = trunk(params, batch)
+        return _lm_loss(_lm_logits(params, x, cfg), batch, aux)
+
+    return Model(cfg, params, prefill_fn, decode_fn,
+                 partial(cache_specs, cfg), loss_fn, logits_fn,
+                 partial(input_specs, cfg), init_params)
 
 
 # ---------------------------------------------------------------- dense / moe
@@ -111,23 +197,34 @@ def _decoder_decode_fn(cfg: ModelConfig):
     return decode_fn
 
 
-def _build_decoder(cfg: ModelConfig, params: Decoder) -> Model:
+def _build_decoder(cfg: ModelConfig):
+    """(prefill_fn, decode_fn, trunk): ``trunk(params, batch)`` is the
+    training forward up to the final norm, (x, aux)."""
+    def trunk(params: Decoder, batch):
+        x = _inputs_to_embeds(params, batch, cfg)
+        x, _, aux = tfm.decoder_stack(params.layers, x, cfg, _positions(x))
+        return x, aux
+
     def prefill_fn(params: Decoder, batch):
         with torch.no_grad():
             x = _inputs_to_embeds(params, batch, cfg)
-            x, (k, v) = tfm.decoder_stack(params.layers, x, cfg,
-                                          _positions(x), collect_cache=True)
+            x, (k, v), _ = tfm.decoder_stack(params.layers, x, cfg,
+                                             _positions(x),
+                                             collect_cache=True)
             if cfg.attention == "swa" and k.shape[2] > cfg.window:
                 k = k[:, :, -cfg.window:]
                 v = v[:, :, -cfg.window:]
             return _last_logits(params, x, cfg), {"k": k, "v": v}
 
-    return Model(cfg, params, prefill_fn, _decoder_decode_fn(cfg),
-                 partial(cache_specs, cfg))
+    return prefill_fn, _decoder_decode_fn(cfg), trunk
 
 
 # ---------------------------------------------------------------- rwkv6
-def _build_rwkv(cfg: ModelConfig, params: Decoder) -> Model:
+def _build_rwkv(cfg: ModelConfig):
+    def trunk(params: Decoder, batch):
+        x = _inputs_to_embeds(params, batch, cfg)
+        return tfm.rwkv_stack(params.layers, x, cfg)[0], _no_aux(x)
+
     def prefill_fn(params: Decoder, batch):
         with torch.no_grad():
             x = _inputs_to_embeds(params, batch, cfg)
@@ -142,11 +239,16 @@ def _build_rwkv(cfg: ModelConfig, params: Decoder) -> Model:
             x = apply_norm(params.ln_f, x[:, None], cfg)
             return unembed(params.tok, x, cfg)[:, 0], cache
 
-    return Model(cfg, params, prefill_fn, decode_fn, partial(cache_specs, cfg))
+    return prefill_fn, decode_fn, trunk
 
 
 # ---------------------------------------------------------------- hybrid
-def _build_hybrid(cfg: ModelConfig, params: Decoder) -> Model:
+def _build_hybrid(cfg: ModelConfig):
+    def trunk(params: Decoder, batch):
+        x = _inputs_to_embeds(params, batch, cfg)
+        return (tfm.hybrid_stack(params.blocks, x, cfg, _positions(x))[0],
+                _no_aux(x))
+
     def prefill_fn(params: Decoder, batch):
         with torch.no_grad():
             x = _inputs_to_embeds(params, batch, cfg)
@@ -161,26 +263,35 @@ def _build_hybrid(cfg: ModelConfig, params: Decoder) -> Model:
                                               pos)
             return _last_logits(params, x, cfg), cache
 
-    return Model(cfg, params, prefill_fn, decode_fn, partial(cache_specs, cfg))
+    return prefill_fn, decode_fn, trunk
 
 
 # ---------------------------------------------------------------- encdec
-def _build_encdec(cfg: ModelConfig, params: Decoder) -> Model:
+def _build_encdec(cfg: ModelConfig):
     def encode(params: Decoder, frames):
         dt = cdtype(cfg)
         x = frames.to(dt) @ params.frontend_proj.to(dt)
-        x, _ = tfm.decoder_stack(params.enc_layers, x, cfg, _positions(x),
-                                 causal=False)
+        x, _, _ = tfm.decoder_stack(params.enc_layers, x, cfg,
+                                    _positions(x), causal=False)
         return apply_norm(params.ln_enc, x, cfg)
+
+    def trunk(params: Decoder, batch):
+        """batch: ``tokens``, ``labels`` (B, S) and ``frames`` (B, Se,
+        D)."""
+        enc = encode(params, batch["frames"])
+        x = embed(params.tok, batch["tokens"], cfg)
+        x, _, aux = tfm.decoder_stack(params.layers, x, cfg, _positions(x),
+                                      enc_out=enc)
+        return x, aux
 
     def prefill_fn(params: Decoder, batch):
         """batch: ``tokens`` (B, S) and ``frames`` (B, Se, D)."""
         with torch.no_grad():
             enc = encode(params, batch["frames"])
             x = embed(params.tok, batch["tokens"], cfg)
-            x, (k, v) = tfm.decoder_stack(params.layers, x, cfg,
-                                          _positions(x), enc_out=enc,
-                                          collect_cache=True)
+            x, (k, v), _ = tfm.decoder_stack(params.layers, x, cfg,
+                                             _positions(x), enc_out=enc,
+                                             collect_cache=True)
             # cross K/V per decoder layer, computed once for decode
             ck, cv = zip(*(tfm.cross_kv(p.cross, enc, cfg)
                            for p in params.layers))
@@ -188,8 +299,7 @@ def _build_encdec(cfg: ModelConfig, params: Decoder) -> Model:
                      "cv": torch.stack(cv)}
             return _last_logits(params, x, cfg), cache
 
-    return Model(cfg, params, prefill_fn, _decoder_decode_fn(cfg),
-                 partial(cache_specs, cfg))
+    return prefill_fn, _decoder_decode_fn(cfg), trunk
 
 
 _BUILD_BY_FAMILY = {"dense": _build_decoder, "moe": _build_decoder,
@@ -208,33 +318,86 @@ def _index(tree, i: int):
 
 def _load(module: nn.Module, tree, dev) -> None:
     """Replace each weight of ``module`` with the array of the same name
-    in ``tree``, in the dtype the port holds that weight in (module lists
-    take the stacked leading axes)."""
-    if isinstance(module, nn.ModuleList):
-        for i, child in enumerate(module):
-            _load(child, _index(tree, i), dev)
-        return
-    for name, param in list(module.named_parameters(recurse=False)):
-        t = torch.tensor(np.asarray(tree[name], np.float32))
+    in ``tree`` (:func:`unstack_tree`), in the dtype the port holds that
+    weight in and with its ``requires_grad``."""
+    for name, arr in unstack_tree(module, tree).items():
+        owner_name, _, attr = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        param = getattr(owner, attr)
+        t = torch.tensor(np.asarray(arr, np.float32))
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} for a weight "
                              f"of {tuple(param.shape)}")
-        setattr(module, name, nn.Parameter(
-            t.to(device=dev, dtype=param.dtype), requires_grad=False))
-    for name, child in module.named_children():
-        _load(child, tree[name], dev)
+        setattr(owner, attr, nn.Parameter(
+            t.to(device=dev, dtype=param.dtype),
+            requires_grad=param.requires_grad))
 
 
-def params_from_jax(cfg: ModelConfig, params_np, *, device="cuda") -> Decoder:
+def params_from_jax(cfg: ModelConfig, params_np, *, device="cuda",
+                    trainable: bool = False) -> Decoder:
     """The port's weights from the reference's ``init_params`` tree as
     numpy arrays (``{"tok": {"embed", "unembed"}, "layers" or "blocks":
     {...} stacked over layers, "ln_f": {...}}``, and the
     encoder-decoder's ``frontend_proj``, ``enc_layers`` and
-    ``ln_enc``). Each weight lands in
-    the dtype the port holds it in: matrices in ``cfg.dtype``, weights
-    the reference uses in f32 (norms, decays) in ``param_dtype``."""
+    ``ln_enc``). Each weight lands in the dtype the port holds it in:
+    for serving, frozen, matrices in ``cfg.dtype`` and weights the
+    reference uses in f32 (norms, decays) in ``param_dtype``; with
+    ``trainable``, every weight an f32 master that requires grad."""
     _check_family(cfg)
     dev = check_device(device)
-    w = Decoder(cfg, torch.Generator().manual_seed(0), "meta")
+    w = _weights(cfg, torch.Generator().manual_seed(0), "meta", trainable)
     _load(w, params_np, dev)
     return w
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def weight_tree(module: nn.Module, leaf=lambda name, p: p):
+    """The reference's nested-dict layout of ``module``'s weights, each
+    leaf ``leaf(qualified name, parameter)`` (torch tensors), module
+    lists stacked on a new leading axis, as ``init_params`` stacks
+    layers."""
+    def walk(m: nn.Module, prefix: str):
+        if isinstance(m, nn.ModuleList):
+            return _stack([walk(c, f"{prefix}{i}.") for i, c in enumerate(m)])
+        out = {n: leaf(prefix + n, p)
+               for n, p in m.named_parameters(recurse=False)}
+        for n, child in m.named_children():
+            out[n] = walk(child, f"{prefix}{n}.")
+        return out
+    return walk(module, "")
+
+
+def unstack_tree(module: nn.Module, tree) -> dict:
+    """The inverse of :func:`weight_tree`: {qualified name: tensor} of
+    ``module``'s weights from a tree in the reference's layout (views of
+    the tree's leaves)."""
+    out = {}
+
+    def walk(m: nn.Module, t, prefix: str):
+        if isinstance(m, nn.ModuleList):
+            for i, c in enumerate(m):
+                walk(c, _index(t, i), f"{prefix}{i}.")
+            return
+        for n, _ in m.named_parameters(recurse=False):
+            out[prefix + n] = t[n]
+        for n, child in m.named_children():
+            walk(child, t[n], f"{prefix}{n}.")
+    walk(module, tree, "")
+    return out
+
+
+def params_to_jax(params: Decoder) -> dict:
+    """The reference's ``init_params`` tree of the port's weights as f32
+    numpy arrays (layers stacked on the leading axes): what
+    :func:`params_from_jax` takes, and what the reference's model
+    runs."""
+    def numpy(tree):
+        if isinstance(tree, dict):
+            return {k: numpy(v) for k, v in tree.items()}
+        return tree.numpy()
+    return numpy(weight_tree(params, lambda n, p: p.detach().float().cpu()))

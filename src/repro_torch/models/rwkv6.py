@@ -10,7 +10,9 @@ Channel-mix: shifted squared-ReLU FFN with sigmoid receptance gate.
 The JAX package's ``repro.models.rwkv6`` with weights in ``nn.Module``s.
 Its ``time_mix`` runs the recurrence as an inline scan; here it goes
 through :func:`repro_torch.kernels.rwkv6.rwkv6_forward` — the kernel K6
-on CUDA, the per-step plain version on the CPU. Each weight is held in
+on CUDA, the per-step plain version on the CPU — or, where autograd
+records (K6 is forward-only), through the differentiable plain version
+on any device. Each weight is held in
 the dtype the reference casts it to where it is used: the decay LoRA,
 ``w0``, ``u`` and the group-norm weights in ``param_dtype`` (the decay
 is computed in f32), the rest in ``cfg.dtype``.
@@ -22,9 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6 import rwkv6_forward
+from repro_torch.kernels.rwkv6 import rwkv6_forward, rwkv6_forward_plain
 from repro_torch.models.layers import (cdtype, const_init, dense_init,
-                                       group_norm_heads, normal_init, pdtype)
+                                       group_norm_heads, normal_init, pdtype,
+                                       recording)
 
 _MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -121,9 +124,11 @@ def time_mix(p: TimeMix, x, cfg: ModelConfig, state=None):
     reference's ``_out`` rounds its f32 scan output)."""
     xprev = _shifted(x, None if state is None else state[0])
     r, k, v, w, g = _rkvwg(p, x, xprev, cfg)
-    o, s_fin = rwkv6_forward(r.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), w.transpose(1, 2), p.u,
-                             init_state=None if state is None else state[1])
+    s0 = None if state is None else state[1]
+    run = (rwkv6_forward_plain if recording(r, k, v, w, p.u, s0)
+           else rwkv6_forward)
+    o, s_fin = run(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   w.transpose(1, 2), p.u, init_state=s0)
     return _out(p, o.transpose(1, 2), g, cfg), (x[:, -1], s_fin)
 
 

@@ -1,19 +1,26 @@
 """Backbones: the dense/MoE decoder (also the encoder-decoder's two
 stacks, whose decoder blocks add cross attention), the RWKV-6 stack and
 the hybrid Mamba-2 + shared-attention stack (zamba2), each with its
-prefill stack and its one-token decode step.
+prefill/train stack and its one-token decode step.
 
 Layers are an ``nn.ModuleList`` walked by a Python loop (the reference
-scans stacked params; its ``remat`` and ``scan_layers`` knobs are for
-training and compile size, and have no counterpart in this inference
-path). Decode steps update their caches in place (the reference
-returns new ones). The MoE load-balance loss is dropped in these
-inference stacks (:func:`repro_torch.models.moe.moe_ffn` returns it).
+scans stacked params; ``scan_layers`` only sizes its compiled program
+and has no counterpart here). The stacks are the training forward too:
+under autograd each block runs through :func:`remat`, the counterpart
+of the reference's ``_remat`` (``cfg.remat`` "none", "full" or
+"selective"), and :func:`decoder_stack` returns the MoE load-balance
+loss summed over layers, as the reference's does. Decode steps update
+their caches in place (the reference returns new ones); the stacks
+write no state in place.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -47,10 +54,38 @@ class Block(nn.Module):
             self.mlp = GLUMLP(cfg, gen, device)
 
 
+#: the products "selective" remat keeps: those without batch dimensions
+#: (``x @ W`` lowers to ``mm``), as ``dots_with_no_batch_dims_saveable``
+#: keeps them in the reference; batched products (``bmm``: the attention
+#: scores, the MoE experts, RWKV-6's mix LoRA) are recomputed, as there
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat`` while autograd records: "none" keeps
+    every activation; "full" keeps only ``fn``'s inputs and recomputes
+    the rest in the backward pass; "selective" also keeps the outputs of
+    the unbatched products (:data:`_SAVED_DOTS`). Recomputation gives
+    the same numbers, so remat changes memory and time, not results."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("full", "selective"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {} if cfg.remat == "full" else {"context_fn": partial(
+        create_selective_checkpoint_contexts, _dots_saveable)}
+    return partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _ffn(p: Block, x, cfg: ModelConfig):
+    """Returns (y, aux): the MoE load-balance loss, or None."""
     if cfg.family == "moe":
-        return moe_mod.moe_ffn(p.moe, x, cfg)[0]
-    return glu_mlp(p.mlp, x, cfg)
+        return moe_mod.moe_ffn(p.moe, x, cfg)
+    return glu_mlp(p.mlp, x, cfg), None
 
 
 def cross_kv(p_cross: attn.Attention, enc_out, cfg: ModelConfig):
@@ -64,9 +99,9 @@ def cross_kv(p_cross: attn.Attention, enc_out, cfg: ModelConfig):
 
 def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
               enc_out=None):
-    """One decoder block (prefill); with ``enc_out`` (B, Se, D) its
+    """One decoder block (train/prefill); with ``enc_out`` (B, Se, D) its
     queries also attend, non-causally, over the encoder's keys. Returns
-    (x, (k, v))."""
+    (x, (k, v), aux)."""
     a, (k, v) = attn.attention(p.attn, apply_norm(p.ln1, x, cfg), cfg,
                                positions, causal=causal)
     x = x + a
@@ -77,23 +112,28 @@ def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
         o = attn.cross_attention(q, ck, cv, cfg)
         B, S = x.shape[:2]
         x = x + o.reshape(B, S, cfg.q_dim) @ p.cross.wo.to(cdtype(cfg))
-    x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
-    return x, (k, v)
+    f, aux = _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
+    return x + f, (k, v), aux
 
 
 def decoder_stack(layers: nn.ModuleList, x, cfg: ModelConfig, positions, *,
                   causal=True, enc_out=None, collect_cache=False):
     """All layers in order (``enc_out``: see :func:`block_fwd`). Returns
-    (x, (k, v) stacked over layers as (L, B, S, KH, hd), or None)."""
+    (x, (k, v) stacked over layers as (L, B, S, KH, hd), or None, the
+    load-balance loss summed over layers)."""
+    body = remat(partial(block_fwd, cfg=cfg, positions=positions,
+                         causal=causal, enc_out=enc_out), cfg)
     ks, vs = [], []
+    aux = x.new_zeros((), dtype=torch.float32)
     for p in layers:
-        x, (k, v) = block_fwd(p, x, cfg, positions, causal=causal,
-                              enc_out=enc_out)
+        x, (k, v), aux_l = body(p, x)
+        if aux_l is not None:
+            aux = aux + aux_l
         if collect_cache:
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
-    return x, kv
+    return x, kv, aux
 
 
 def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
@@ -128,7 +168,7 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
             oc = attn.decode_attention(qc, cache["ck"][i], cache["cv"][i],
                                        cross_len)
             x = x + oc.reshape(B, 1, cfg.q_dim) @ p.cross.wo.to(dt)
-        x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
+        x = x + _ffn(p, apply_norm(p.ln2, x, cfg), cfg)[0]
     return x, cache
 
 
@@ -144,22 +184,28 @@ class RwkvBlock(nn.Module):
         self.ffn = rwkv.ChannelMix(cfg, gen, device)
 
 
+def _rwkv_layer(p: RwkvBlock, x, st_a, st_f, cfg: ModelConfig):
+    """One RWKV-6 layer from its states (or None): (x, ((att_x, att_s),
+    ffn_x))."""
+    a, st_a = rwkv.time_mix(p.att, apply_norm(p.ln1, x, cfg), cfg,
+                            state=st_a)
+    x = x + a
+    f, st_f = rwkv.channel_mix(p.ffn, apply_norm(p.ln2, x, cfg), cfg,
+                               state=st_f)
+    return x + f, (st_a, st_f)
+
+
 def rwkv_stack(layers: nn.ModuleList, x, cfg: ModelConfig, state=None,
                collect_state=False):
     """All layers in order. state: {"att_x", "att_s", "ffn_x"} stacked
     over layers, or None (zeros). Returns (x, the final states stacked
     the same way, or None)."""
+    body = remat(partial(_rwkv_layer, cfg=cfg), cfg)
     outs = {"att_x": [], "att_s": [], "ffn_x": []}
     for i, p in enumerate(layers):
-        st_a = None if state is None else (state["att_x"][i],
-                                          state["att_s"][i])
-        a, (ax, as_) = rwkv.time_mix(p.att, apply_norm(p.ln1, x, cfg), cfg,
-                                     state=st_a)
-        x = x + a
-        f, fx = rwkv.channel_mix(p.ffn, apply_norm(p.ln2, x, cfg), cfg,
-                                 state=None if state is None
-                                 else state["ffn_x"][i])
-        x = x + f
+        st_a, st_f = (None, None) if state is None else (
+            (state["att_x"][i], state["att_s"][i]), state["ffn_x"][i])
+        x, ((ax, as_), fx) = body(p, x, st_a, st_f)
         if collect_state:
             for k, t in (("att_x", ax), ("att_s", as_), ("ffn_x", fx)):
                 outs[k].append(t)
@@ -215,29 +261,36 @@ class HybridBlocks(nn.Module):
 
 def _shared_block(shared: Block, x, x0, cfg: ModelConfig, positions):
     fused = torch.cat([x, x0], dim=-1) @ shared.fuse.to(cdtype(cfg))
-    y, (k, v) = block_fwd(shared, fused, cfg, positions)
+    y, (k, v), _ = block_fwd(shared, fused, cfg, positions)
     return x + y, (k, v)
+
+
+def _hybrid_group(group: nn.ModuleList, x, shared: Block, x0,
+                  cfg: ModelConfig, positions):
+    """One group: the shared block, then its Mamba-2 layers. Returns (x,
+    (k, v, conv states (K,B,W-1,C), SSM states (K,B,H,P,N)))."""
+    x, (k, v) = _shared_block(shared, x, x0, cfg, positions)
+    convs, ssms = [], []
+    for pm in group:
+        y, (cs, ss) = m2.mamba2_block(pm.mamba, apply_norm(pm.ln, x, cfg),
+                                      cfg)
+        x = x + y
+        convs.append(cs)
+        ssms.append(ss)
+    return x, (k, v, torch.stack(convs), torch.stack(ssms))
 
 
 def hybrid_stack(blocks: HybridBlocks, x, cfg: ModelConfig, positions,
                  collect=False):
     """Returns (x, {"attn_k", "attn_v": (G,B,S,KH,hd), "conv":
     (G,K,B,W-1,C), "ssm": (G,K,B,H,P,N)} or None)."""
-    x0 = x
+    body = remat(partial(_hybrid_group, shared=blocks.shared, x0=x,
+                         cfg=cfg, positions=positions), cfg)
     outs = {"attn_k": [], "attn_v": [], "conv": [], "ssm": []}
     for group in blocks.mamba:
-        x, (k, v) = _shared_block(blocks.shared, x, x0, cfg, positions)
-        convs, ssms = [], []
-        for pm in group:
-            y, (cs, ss) = m2.mamba2_block(pm.mamba, apply_norm(pm.ln, x, cfg),
-                                          cfg)
-            x = x + y
-            convs.append(cs)
-            ssms.append(ss)
+        x, sts = body(group, x)
         if collect:
-            for key, t in (("attn_k", k), ("attn_v", v),
-                           ("conv", torch.stack(convs)),
-                           ("ssm", torch.stack(ssms))):
+            for key, t in zip(outs, sts):
                 outs[key].append(t)
     sts = {k: torch.stack(v) for k, v in outs.items()} if collect else None
     return x, sts
@@ -260,7 +313,7 @@ def hybrid_decode_step(blocks: HybridBlocks, x, cfg: ModelConfig, cache,
         write_slot((kc, vc), k, v, pos)
         o = attn.decode_attention(q, kc, vc, pos + 1)
         y = fused + o.reshape(B, 1, cfg.q_dim) @ shared.attn.wo.to(dt)
-        f = _ffn(shared, apply_norm(shared.ln2, y, cfg), cfg)
+        f = _ffn(shared, apply_norm(shared.ln2, y, cfg), cfg)[0]
         x = x + (y + f)
         for m, pm in enumerate(group):
             y2, (cs, ss) = m2.mamba2_step(

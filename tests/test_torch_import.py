@@ -1,6 +1,6 @@
 """The port stands alone: importing ``repro_torch`` (the sim path, the
-serving path, the campaign harness and the benchmarks) loads neither
-jax nor the JAX package, no port source
+serving path, the campaign harness, the benchmarks and the training
+path) loads neither jax nor the JAX package, no port source
 imports either, and the GPU engine refuses to run without a card unless
 the caller asks for the CPU."""
 import dataclasses
@@ -27,6 +27,9 @@ import repro_torch.launch.serve, repro_torch.configs
 import repro_torch.campaign, repro_torch.benchmarks.run
 import repro_torch.benchmarks.campaign, repro_torch.benchmarks.federation_bench
 import repro_torch.benchmarks.serving_bench, repro_torch.benchmarks.paper_figs
+import repro_torch.training.optimizer, repro_torch.training.train_step
+import repro_torch.training.checkpoint, repro_torch.data.pipeline
+import repro_torch.parallel.compression, repro_torch.launch.train
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -67,6 +70,16 @@ def test_torch_engine_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_scenario(dataclasses.replace(
             sc, backend_options={"device": "cuda:0"}), quick=True)
+
+
+def test_train_launcher_without_cuda_raises(monkeypatch):
+    from repro_torch.launch.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--reduced", "--steps", "1", "--device", "cuda:0"])
 
 
 def test_kernel_wrappers_refuse_mixed_devices():
