@@ -45,7 +45,21 @@ per source, all at once) and drives the port's three paths:
   held against the plain versions) with prefill logits close to the
   training route's; the reduced families' loss and gradients on the
   card against the CPU in f32; and the kernels' refusal of inputs that
-  require grad.
+  require grad;
+* the examples (phase ``examples``): the port's five examples through
+  their entry points — quickstart for all ten architectures (K4-K7 on
+  the ``examples.quickstart`` path, held against their plain versions
+  on the inputs that path gave them), multitenant_serve on a virtual
+  clock equal to its CPU run line for line (K4, K5, K6),
+  federation_demo on the torch engine within VR_TOL of batched (K2,
+  K3), elastic_restart's resume equal, and train_100m at its full size
+  cut only in steps (its step time, tokens/s, FLOP share and peak
+  memory; no kernel);
+* the sharding layer (phase ``mesh``): a one-rank NCCL group, the
+  launcher on ``make_host_mesh()`` equal bit for bit to the run with no
+  group, MoE ``tp`` under the (1, 1) mesh against the local function,
+  ``compressed_allreduce`` against its plain composition; the group
+  destroyed.
 
 Each path's launch counts are reset just before it and read just after.
 At the end the campaign's fork server is stopped and no process this
@@ -59,6 +73,7 @@ any failure.
     python3 chip_smoke.py --phases env,families
     python3 chip_smoke.py --phases env,campaign
     python3 chip_smoke.py --phases env,train
+    python3 chip_smoke.py --phases env,examples,mesh
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -83,7 +98,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent",
-          "families", "campaign", "train")
+          "families", "campaign", "train", "examples", "mesh")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 SUM_RTOL = 1e-5         # f32 row sums in another order (K1/K2 else exact)
@@ -168,6 +183,24 @@ GRAD_TOL = 1e-4
 LOSS_RTOL = 1e-5
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, 700 W)
 BF16_PEAK_FLOPS = 989e12
+# examples: the port's five examples through their entry points on the
+# card — quickstart for every arch (QS_STEPS training steps, then prefill
+# and 5 greedy decode steps through K4-K7), multitenant_serve on a
+# virtual clock (its printout equal to the CPU's), federation_demo on
+# the torch engine (|dVR| within VR_TOL of batched), elastic_restart
+# (resume equal), train_100m at its full size cut only in steps
+# (T100M_STEPS, a checkpoint at 50 and the last, then a resume to
+# T100M_RESUME_STEPS)
+QS_STEPS = 3
+SERVE_TICK_S = 0.25
+T100M_STEPS = 60
+T100M_RESUME_STEPS = 70
+T100M_MIN_DROP = 1.0
+# mesh: a one-rank NCCL group on the card; the launcher on the host mesh
+# (MESH_STEPS steps) against the run with no group, bit for bit; MoE tp
+# under a (1, 1) mesh within MOE_TP_TOL of local (f32)
+MESH_STEPS = 3
+MOE_TP_TOL = 1e-5
 ALL_KERNELS = FLEET_KERNELS + SERVING_KERNELS + ("rwkv6", "ssd")
 
 
@@ -2120,27 +2153,28 @@ def _train_setup(cfg, steps: int):
     return model, make_train_step(model, tc), batches
 
 
-def model_flops_per_token(cfg, params) -> float:
+def model_flops_per_token(cfg, params, seq: int = TRAIN_SEQ) -> float:
     """Training FLOPs a token: 6·N for the N weights of ``params`` that
     multiply (every weight but an untied input embedding table, which is
     a lookup) plus the attention scores and their product with V,
-    6·L·H·hd·S over the causal half of S keys (forward 2·2·H·hd·S/2,
-    backward twice that). Recomputation is not counted."""
+    6·L·H·hd·S over the causal half of S = ``seq`` keys (forward
+    2·2·H·hd·S/2, backward twice that). Recomputation is not counted."""
     n = sum(p.numel() for p in params.parameters())
     if not cfg.tie_embeddings:
         n -= params.tok.embed.numel()
-    return 6 * n + 6 * cfg.num_layers * cfg.q_dim * TRAIN_SEQ
+    return 6 * n + 6 * cfg.num_layers * cfg.q_dim * seq
 
 
 #: substrings of the names of cuBLAS's and CUTLASS's matrix-product kernels
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
 
 
-def profile_step(step_fn, state, batch, top: int = 12) -> dict:
+def profile_step(step_fn, state, batch, top: int = 12,
+                 tag: str = "train") -> dict:
     """One more train step under torch.profiler (it updates ``state``,
     which the caller then drops): the device time of the step's
     kernels, of the matrix products among them and of the ``top``
-    kernels by time, with their counts."""
+    kernels by time, with their counts (logged under ``tag``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2150,7 +2184,7 @@ def profile_step(step_fn, state, batch, top: int = 12) -> dict:
             step_fn(state, batch)
             torch.cuda.synchronize()
     except (RuntimeError, AssertionError) as e:
-        log(f"[train] profile: profiler unavailable ({e})")
+        log(f"[{tag}] profile: profiler unavailable ({e})")
         return {}
     ks = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
           for e in prof.key_averages()]
@@ -2163,7 +2197,7 @@ def profile_step(step_fn, state, batch, top: int = 12) -> dict:
            "launches": sum(k[2] for k in ks),
            "top": [{"name": k[0][:90], "ms": k[1], "count": k[2]}
                    for k in ks[:top]]}
-    log(f"[train] profile {json.dumps(out)}")
+    log(f"[{tag}] profile {json.dumps(out)}")
     return out
 
 
@@ -2560,6 +2594,655 @@ def phase_train(fleet, launches: dict, kern: dict) -> list:
     return failures
 
 
+# ---------------------------------------------------------------- examples
+def _capture_recurrent(seen: dict):
+    """Wrap K6's and K7's wrappers where the models call them
+    (``repro_torch.models.rwkv6`` and ``.mamba2``) so that ``seen`` keeps
+    copies of the inputs of the first call at each shape, layout, dtype
+    and state; every call still runs the kernel. Returns the function
+    that puts the wrappers back."""
+    import torch
+
+    import repro_torch.models.mamba2 as m7
+    import repro_torch.models.rwkv6 as m6
+
+    orig = {"rwkv6": m6.rwkv6_forward, "ssd": m7.ssd_forward}
+
+    def wrap(kind):
+        def run(*args, **kw):
+            kw = {k: v for k, v in kw.items() if v is not None}
+            key = (kind, tuple((tuple(a.shape), a.stride(), a.dtype)
+                               for a in args),
+                   tuple(sorted((k, tuple(v.shape) if torch.is_tensor(v)
+                                 else v) for k, v in kw.items())))
+            if key not in seen:
+                seen[key] = (tuple(a.clone() for a in args),
+                             {k: v.clone() if torch.is_tensor(v) else v
+                              for k, v in kw.items()})
+            return orig[kind](*args, **kw)
+        return run
+
+    m6.rwkv6_forward, m7.ssd_forward = wrap("rwkv6"), wrap("ssd")
+
+    def restore():
+        m6.rwkv6_forward, m7.ssd_forward = orig["rwkv6"], orig["ssd"]
+    return restore
+
+
+def path_recurrent_checks(out: dict, seen: dict, path: str,
+                          kinds=("rwkv6", "ssd")) -> list:
+    """K6 and K7 against their plain versions (in f64) on the inputs a
+    path gave them (``seen``, from :func:`_capture_recurrent`), as
+    :func:`_recurrent_case` holds them, timed beside their bounds; the
+    cases join ``out``'s kernel records. Each kernel of ``kinds`` must
+    have been captured. Returns the failures."""
+    from repro_torch.kernels import rwkv6 as k6
+    from repro_torch.kernels import ssd as k7
+
+    cases = {"rwkv6": [], "ssd": []}
+    for (kind, _, _), (args, kw) in seen.items():
+        dtype = str(args[0].dtype).removeprefix("torch.")
+        init = "init_state" in kw
+        if kind == "rwkv6":
+            B, H, T, K = args[0].shape
+            label = f"{path} path ({B}, {H}, {T}, {K})"
+            bound = k6.rwkv6_bound_ms(B, H, T, K,
+                                      itemsize=args[0].element_size(),
+                                      init_state=init)
+            kernel, plain = k6.rwkv6_forward, k6.rwkv6_forward_plain
+        else:
+            B, H, T, P = args[0].shape
+            N = args[3].shape[-1]
+            label = f"{path} path ({B}, {H}, {T}, {P}) N={N}"
+            bound = k7.ssd_bound_ms(B, H, T, P, N,
+                                    itemsize=args[0].element_size(),
+                                    bc_itemsize=args[3].element_size(),
+                                    init_state=init)
+            kernel, plain = k7.ssd_forward, k7.ssd_forward_plain
+        cases[kind].append(_recurrent_case(
+            label + (" initial state" if init else ""), dtype, kernel,
+            plain, args, kw, bound, long_run=False))
+    failures = []
+    for name, found in cases.items():
+        if not found:
+            if name in kinds:
+                failures.append(f"{path} path: no {name} call captured")
+            continue
+        merge_cases(out, name, found)
+        failures += [f"kernel {name} on the {path} path's {c['case']} "
+                     f"{c['dtype']}" for c in found if not c["ok"]]
+    return failures
+
+
+def _quiet(fn, *args, **kw):
+    """``fn``'s result and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def examples_quickstart(fleet, launches: dict, kern: dict) -> list:
+    """``python -m repro_torch.examples.quickstart --arch A --steps
+    QS_STEPS`` for every arch on the card: finite losses and a greedy
+    continuation of 6 token ids (none for the vision stub); K4-K7 on the
+    ``examples.quickstart`` path, held against their plain versions on
+    the inputs it gave them."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.examples import quickstart
+
+    failures = []
+    seen_att, seen_rec = {}, {}
+    restores = [_capture_attention(seen_att), _capture_recurrent(seen_rec)]
+    try:
+        fleet.reset_launches()
+        for arch in ARCH_IDS:
+            t0 = time.perf_counter()
+            r, _ = _quiet(quickstart.main,
+                          ["--arch", arch, "--steps", str(QS_STEPS)])
+            cont, vocab = r["continuation"], get_reduced(arch).vocab_size
+            ok = (all(math.isfinite(x) for x in r["loss"])
+                  and (cont is None if get_reduced(arch).frontend == "vision"
+                       else len(cont) == 6
+                       and all(0 <= c < vocab for c in cont)))
+            log(f"[examples] quickstart {arch}: losses "
+                f"{[round(x, 4) for x in r['loss']]}, continuation {cont}, "
+                f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"examples: quickstart {arch}")
+            del r
+        torch.cuda.synchronize()
+    finally:
+        for restore in restores:
+            restore()
+    failures += _path_launches("examples.quickstart", {
+        k: fleet.LAUNCHES[k] for k in SERVING_KERNELS + RECURRENT_KERNELS},
+        launches)
+    failures += path_attention_checks(kern, seen_att,
+                                      path="examples.quickstart")
+    failures += path_recurrent_checks(kern, seen_rec, "examples.quickstart")
+    return failures
+
+
+def _ticking_engine(device: str):
+    """The serving engine on a virtual clock that advances SERVE_TICK_S
+    before each engine step (the example's engine reads the wall clock,
+    which no two runs share)."""
+    from repro_torch.serving import MultiTenantEngine, VirtualClock
+
+    class Ticking(MultiTenantEngine):
+        def __init__(self, cfg, **kw):
+            self.vclock = VirtualClock(SERVE_TICK_S)
+            super().__init__(cfg, clock=self.vclock, **kw)
+
+        def step(self):
+            self.vclock.tick()
+            super().step()
+    return Ticking
+
+
+def examples_multitenant(fleet, launches: dict, kern: dict) -> list:
+    """``multitenant_serve`` on the card and on the CPU, both engines on
+    a virtual clock: the printouts equal line for line (they depend on
+    the clock and the token counts only); K4, K5 and K6 on the
+    ``examples.multitenant_serve`` path, held against their plain
+    versions on the inputs the card's run gave them (batched prompts,
+    slots of different lengths)."""
+    import torch
+
+    from repro_torch.examples import multitenant_serve as ms
+
+    orig = ms.MultiTenantEngine
+    ms.MultiTenantEngine = _ticking_engine(DEVICE)
+    seen_att, seen_rec = {}, {}
+    try:
+        restores = [_capture_attention(seen_att),
+                    _capture_recurrent(seen_rec)]
+        try:
+            fleet.reset_launches()
+            t0 = time.perf_counter()
+            _, card = _quiet(ms.run, DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for restore in restores:
+                restore()
+        counts = {k: fleet.LAUNCHES[k] for k in SERVING_KERNELS + ("rwkv6",)}
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _, cpu = _quiet(ms.run, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+    finally:
+        ms.MultiTenantEngine = orig
+    failures = _path_launches("examples.multitenant_serve", counts, launches)
+    same = card.splitlines() == cpu.splitlines()
+    for line in card.splitlines()[-6:]:
+        log(f"[examples] multitenant_serve: {line}")
+    log(f"[examples] multitenant_serve on the card in {wall:.2f} s, "
+        f"{len(card.splitlines())} lines, equal to the CPU's: {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        diff = [(a, b) for a, b in zip(card.splitlines(), cpu.splitlines())
+                if a != b]
+        log(f"[examples] multitenant_serve first difference: {diff[:1]}")
+        failures.append("examples: multitenant_serve card vs cpu")
+    path = "examples.multitenant_serve"
+    failures += path_attention_checks(kern, seen_att, path=path)
+    failures += path_recurrent_checks(kern, seen_rec, path, kinds=("rwkv6",))
+    return failures
+
+
+def _capture_fleet(seen: dict):
+    """Wrap K1's, K2's and K3's wrappers in ``repro_torch.kernels.fleet``
+    (the torch engine calls them through that module) so that ``seen``
+    keeps copies of the inputs of the first call at each kernel, mode
+    and shape; every call still runs the kernel. Returns the function
+    that puts the wrappers back."""
+    import torch
+
+    orig = {k: getattr(fleet_mod(), k) for k in FLEET_KERNELS}
+
+    def copy(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def wrap(kind):
+        def run(*args, **kw):
+            # shapes and K2's mode; not the chunk word, new every chunk
+            key = (kind, tuple(tuple(a.shape) if torch.is_tensor(a)
+                               else a if isinstance(a, str) else None
+                               for a in args)
+                   + tuple(sorted((k, tuple(v.shape)) for k, v in kw.items()
+                                  if torch.is_tensor(v))),
+                   kw.get("cols"))
+            if key not in seen:
+                seen[key] = (tuple(copy(a) for a in args),
+                             {k: copy(v) for k, v in kw.items()})
+            return orig[kind](*args, **kw)
+        return run
+
+    for k in FLEET_KERNELS:
+        setattr(fleet_mod(), k, wrap(k))
+
+    def restore():
+        for k in FLEET_KERNELS:
+            setattr(fleet_mod(), k, orig[k])
+    return restore
+
+
+def fleet_mod():
+    from repro_torch.kernels import fleet
+    return fleet
+
+
+def path_fleet_checks(out: dict, seen: dict, path: str) -> list:
+    """K1, K2 and K3 against their plain versions on the inputs a path
+    gave them (``seen``, from :func:`_capture_fleet`), as the kernels
+    phase holds them: bit for bit (K2's row sums, in another order,
+    within SUM_RTOL), timed by CUDA events beside their bounds; the
+    cases join ``out``'s kernel records. Each of the three must have
+    been captured. Returns the failures."""
+    import torch
+
+    fleet = fleet_mod()
+    cases = {k: [] for k in FLEET_KERNELS}
+    for (kind, _, _), (args, kw) in seen.items():
+        if kind == "latency_scale":
+            got = fleet.latency_scale(*args)
+            ref = fleet.latency_scale_plain(*args)
+            torch.cuda.synchronize()
+            T, W = args[2].shape
+            mism = int((got != ref).sum())
+            pow_cells = int((args[2] / args[3][:, None] > 1.0).sum())
+            label, dtype, sum_rel = f"{path} path ({T}, {W})", "float32", 0.0
+            bound = fleet.latency_scale_bound_ms(T, W, pow_cells=pow_cells)
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
+
+            def plain(args=args):
+                return fleet.latency_scale_plain(*args)
+        elif kind == "row_draw":
+            mode, k0, k1, ch = args
+            got = fleet.row_draw(*args, **kw)
+            cols = (kw["active"].shape[1] if mode == "dense"
+                    else kw["cols"])
+            ref = fleet.row_draw_plain(
+                mode, k0, k1, ch, cols, kw.get("scale"), kw["sigma"],
+                kw.get("slo"), kw.get("active"), kw.get("totals"))
+            torch.cuda.synchronize()
+            mism, sum_rel = _draw_diff(got, ref)
+            lat, rlat = (got, ref) if mode == "jitter" else (got[0], ref[0])
+            err = float((lat - rlat).abs().max()) if lat.numel() else 0.0
+            label = f"{path} path {mode} ({k0.shape[0]}, {cols})"
+            dtype = "float32"
+            bound = fleet.row_draw_bound_ms(mode, k0.shape[0], cols)
+
+            def plain(args=args, kw=kw, cols=cols):
+                mode, k0, k1, ch = args
+                return fleet.row_draw_plain(
+                    mode, k0, k1, ch, cols, kw.get("scale"), kw["sigma"],
+                    kw.get("slo"), kw.get("active"), kw.get("totals"))
+        else:
+            k0, k1, ch, lam = args
+            got = fleet.poisson(*args)
+            ref = fleet.poisson_plain(*args)
+            torch.cuda.synchronize()
+            mism, sum_rel = int((got != ref).sum()), 0.0
+            err = float((got - ref).abs().max()) if got.numel() else 0.0
+            label, dtype = f"{path} path {tuple(lam.shape)}", "int32"
+            bound = fleet.poisson_bound_ms(lam.cpu().numpy(),
+                                           got.cpu().numpy())
+
+            def plain(args=args):
+                return fleet.poisson_plain(*args)
+
+        def kernel(kind=kind, args=args, kw=kw):
+            return getattr(fleet, kind)(*args, **kw)
+        ms = cuda_ms(kernel)
+        cases[kind].append(dict(
+            case=label, dtype=dtype, max_abs_err=err, mismatches=mism,
+            row_sum_max_rel_err=sum_rel,
+            tolerance=f"bit for bit (row sums {SUM_RTOL:g})",
+            ms=ms, event_ms=ms, ms_source="cuda events",
+            plain_ms=cuda_ms(plain, reps=3), bound_ms=bound[0],
+            bound_by=bound[1], library_ms=None,
+            ok=mism == 0 and sum_rel <= SUM_RTOL))
+    failures = []
+    for name, found in cases.items():
+        if not found:
+            failures.append(f"{path} path: no {name} call captured")
+            continue
+        if name in out:
+            out[name].setdefault("modes", {})
+        merge_cases(out, name, found)
+        failures += [f"kernel {name} on the {path} path's {c['case']}"
+                     for c in found if not c["ok"]]
+    return failures
+
+
+def examples_federation(fleet, launches: dict, kern: dict) -> list:
+    """``federation_demo --engine torch --quick`` on the card, as a user
+    runs it (K2 and K3), and again with the torch engine's opt-in
+    ``scale_kernel`` route on its scenario (K1 too; the reference's
+    Pallas latency scale is likewise its jax engine's opt-in ``pallas``
+    option, which its example passes no flag for), each against
+    ``--engine batched --quick``: each policy's VR within VR_TOL. K1-K3
+    on the ``examples.federation_demo`` path, held against their plain
+    versions on the inputs the two runs gave them."""
+    import torch
+
+    from repro_torch.examples import federation_demo
+
+    seen = {}
+    fleet.reset_launches()
+    t0 = time.perf_counter()
+    restore = _capture_fleet(seen)
+    scenarios = federation_demo.SCENARIOS
+    try:
+        res_t, table = _quiet(federation_demo.main,
+                              ["--engine", "torch", "--quick"])
+        sc = scenarios["paper_game_32"]
+        federation_demo.SCENARIOS = {**scenarios, "paper_game_32":
+                                     dataclasses.replace(sc, backend_options={
+                                         **sc.backend_options,
+                                         "scale_kernel": True})}
+        res_k, _ = _quiet(federation_demo.main,
+                          ["--engine", "torch", "--quick"])
+        torch.cuda.synchronize()
+    finally:
+        federation_demo.SCENARIOS = scenarios
+        restore()
+    wall = time.perf_counter() - t0
+    counts = {k: fleet.LAUNCHES[k] for k in FLEET_KERNELS}
+    res_b, _ = _quiet(federation_demo.main, ["--engine", "batched",
+                                             "--quick"])
+    for line in table.splitlines()[1:8]:
+        log(f"[examples] federation_demo torch: {line}")
+    failures = _path_launches("examples.federation_demo", counts, launches)
+    for tag, res in (("", res_t), (" scale_kernel", res_k)):
+        for key, oc in res.outcomes.items():
+            d = abs(oc.violation_rate - res_b.outcomes[key].violation_rate)
+            ok = d <= VR_TOL
+            log(f"[examples] federation_demo{tag} {key}: VR torch "
+                f"{oc.violation_rate:.6f} batched "
+                f"{res_b.outcomes[key].violation_rate:.6f} |dVR| {d:.2e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"examples: federation_demo{tag} {key} VR")
+    log(f"[examples] federation_demo --engine torch --quick, as run and "
+        f"with scale_kernel: {wall:.2f} s")
+    failures += path_fleet_checks(kern, seen, "examples.federation_demo")
+    return failures
+
+
+def examples_elastic(fleet, launches: dict) -> list:
+    """``elastic_restart`` on the card under deterministic algorithms:
+    the example itself raises unless the resumed run's last loss equals
+    the uninterrupted one (1e-6); here both runs' losses must be equal
+    bit for bit. No kernel launches (the training route is plain)."""
+    import torch
+
+    from repro_torch.examples import elastic_restart
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        fleet.reset_launches()
+        t0 = time.perf_counter()
+        r, text = _quiet(elastic_restart.main, [])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = {k: fleet.LAUNCHES[k] for k in ALL_KERNELS}
+    for k, n in counts.items():
+        launches.setdefault(k, {})["examples.elastic_restart"] = n
+    ok = r["b"] == r["a"] and "BIT-EXACT RESUME" in text
+    log(f"[examples] elastic_restart: loss@8 uninterrupted "
+        f"{r['ref_loss']:.7f} resumed {r['res_loss']:.7f}, every step "
+        f"equal: {r['b'] == r['a']}, {time.perf_counter() - t0:.1f} s, "
+        f"launches {json.dumps(counts)} {'ok' if ok else 'FAIL'}")
+    failures = [] if ok else ["examples: elastic_restart resume"]
+    return failures + [f"elastic_restart launched kernel {k} {n} times"
+                       for k, n in counts.items() if n]
+
+
+def examples_train_100m(fleet, launches: dict) -> tuple[list, dict]:
+    """``train_100m`` at its full size (12 layers, d 768, vocab 32,000,
+    seq 512, batch 8) for T100M_STEPS steps, then ``--resume`` to
+    T100M_RESUME_STEPS: per step the wall (host clock around the step,
+    ended by a synchronize) and the span between CUDA events around it,
+    tokens/s, the model FLOPs' share of the bf16 peak, peak memory; the
+    loss must fall by T100M_MIN_DROP; no kernel launches (the
+    ``examples.train_100m`` path: the training route is plain). One more
+    step of the trained state under torch.profiler gives the step's
+    device time (its kernels' sum; the event span also holds the gaps
+    where the card waits for the host) and the busy share, that over the
+    median wall. Returns (failures, row)."""
+    import torch
+
+    from repro_torch.examples import train_100m
+    from repro_torch.models import build_model
+
+    ckpt_dir = ROOT / "build" / "train_100m_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps, last = [], {}
+    make = train_100m.make_train_step
+
+    def timed(model, tc):
+        step = make(model, tc)
+
+        def fn(state, batch):
+            last.update(step=step, batch=batch)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = step(state, batch)
+            end.record()
+            end.synchronize()
+            steps.append({"wall_ms": 1e3 * (time.perf_counter() - t0),
+                          "device_ms": start.elapsed_time(end)})
+            last["state"] = out[0]
+            return out
+        return fn
+
+    train_100m.make_train_step = timed
+    try:
+        fleet.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        args = train_100m.parse_args(["--steps", str(T100M_STEPS),
+                                      "--ckpt-dir", str(ckpt_dir)])
+        first, text = _quiet(train_100m.run, args)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        args = train_100m.parse_args(["--steps", str(T100M_RESUME_STEPS),
+                                      "--ckpt-dir", str(ckpt_dir),
+                                      "--resume"])
+        second, text2 = _quiet(train_100m.run, args)
+        torch.cuda.synchronize()
+        counts = {k: fleet.LAUNCHES[k] for k in ALL_KERNELS}
+        prof = profile_step(last["step"], last["state"], last["batch"],
+                            tag="train_100m")
+        last.clear()
+    finally:
+        train_100m.make_train_step = make
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for k, n in counts.items():
+        launches.setdefault(k, {})["examples.train_100m"] = n
+    for line in (text + text2).splitlines():
+        log(f"[train_100m] {line}")
+    cfg = train_100m.config_100m()
+    meta = build_model(cfg, device="meta", trainable=True)
+    tokens = 8 * 512
+    flops = model_flops_per_token(cfg, meta.params, seq=512) * tokens
+    steady = steps[1:T100M_STEPS]
+    wall = statistics.median(s["wall_ms"] for s in steady)
+    span = statistics.median(s["device_ms"] for s in steady)
+    dev = prof.get("kernels_ms", float("nan"))
+    losses = [s["loss"] for s in first]
+    row = {"arch": cfg.name, "params": sum(
+        p.numel() for p in meta.params.parameters()), "seq": 512,
+        "global_batch": 8, "remat": cfg.remat, "steps": len(first),
+        "resumed_steps": len(second), "first_loss": losses[0],
+        "last_loss": losses[-1], "resumed_last_loss": second[-1]["loss"],
+        "step_wall_ms": wall, "step_device_ms": dev,
+        "step_event_span_ms": span,
+        "profiled_launches": prof.get("launches"),
+        "step_wall_ms_min": min(s["wall_ms"] for s in steady),
+        "step_wall_ms_max": max(s["wall_ms"] for s in steady),
+        "first_step_wall_ms": steps[0]["wall_ms"],
+        "tokens_per_s": tokens / (wall / 1e3),
+        "model_flops_per_step": flops,
+        "bf16_peak_share": flops / (wall / 1e3) / BF16_PEAK_FLOPS,
+        "device_busy_share": dev / wall,
+        "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
+        "step_device_ms_each": [round(s["device_ms"], 2) for s in steps],
+        "card": smi_line()}
+    log(f"[train_100m] {json.dumps(row)}")
+    failures = [f"train_100m launched kernel {k} {n} times"
+                for k, n in counts.items() if n]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append("train_100m: a loss is not finite")
+    if not losses[-1] <= losses[0] - T100M_MIN_DROP:
+        failures.append(f"train_100m: loss {losses[0]:.4f} -> "
+                        f"{losses[-1]:.4f}, less than {T100M_MIN_DROP} down")
+    if [s["step"] for s in second] != list(range(T100M_STEPS,
+                                                 T100M_RESUME_STEPS)):
+        failures.append("train_100m: --resume did not start at the "
+                        "last checkpoint")
+    return failures, row
+
+
+def phase_examples(fleet, launches: dict, kern: dict) -> list:
+    """The port's five examples on the card (see the constants above
+    QS_STEPS). Returns the failures."""
+    import torch
+
+    t0 = time.perf_counter()
+    failures = examples_quickstart(fleet, launches, kern)
+    failures += examples_multitenant(fleet, launches, kern)
+    failures += examples_federation(fleet, launches, kern)
+    failures += examples_elastic(fleet, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f, _ = examples_train_100m(fleet, launches)
+    failures += f
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[examples] phase {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if not failures else 'FAIL: ' + '; '.join(failures)}")
+    return failures
+
+
+# ---------------------------------------------------------------- mesh
+def phase_mesh(fleet, launches: dict) -> list:
+    """The sharding layer on a one-rank NCCL group on the card: the
+    launcher on ``make_host_mesh()`` against the same run on a mesh with
+    no group behind it (the single-card step), every step's metrics equal
+    bit for bit under deterministic algorithms; MoE ``tp`` under the
+    (1, 1) mesh within MOE_TP_TOL of the local function (reduced
+    olmoe-1b-7b and arctic-480b, f32); ``compressed_allreduce`` over the
+    group (NCCL's all_to_all and all_gather) equal to its plain
+    composition at world 1 (quantise, dequantise, requantise,
+    dequantise); the group destroyed at the end. No kernel launches
+    (the ``mesh`` path)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.launch.train as lt
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import moe as PM
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel.sharding import Mesh, use_mesh
+
+    t0 = time.perf_counter()
+    failures = []
+    fleet.reset_launches()
+    created = meshes.init_process_group(DEVICE)
+    try:
+        host = meshes.make_host_mesh(DEVICE)
+        log(f"[mesh] {host} backend {dist.get_backend()} world "
+            f"{dist.get_world_size()}")
+        args = lt.parse_args(["--reduced", "--steps", str(MESH_STEPS)])
+        torch.use_deterministic_algorithms(True)
+        try:
+            on_host, _ = _quiet(lt.train, args, host)
+            alone, _ = _quiet(lt.train, args, Mesh(
+                None, ("data", "model"), np.zeros((1, 1), int)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ok = on_host == alone
+        log(f"[mesh] launcher on the host mesh {[m['total_loss'] for m in on_host]} "
+            f"vs no group {[m['total_loss'] for m in alone]}: equal bit for "
+            f"bit {ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("mesh: launcher on the host mesh differs")
+
+        for arch in ("olmoe-1b-7b", "arctic-480b"):
+            cfg = dc.replace(get_reduced(arch, capacity_factor=8.0),
+                             dtype="float32", moe_strategy="tp")
+            pm = PM.MoE(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+            x = torch.randn((2, 16, cfg.d_model), device=DEVICE,
+                            generator=torch.Generator(
+                                device=DEVICE).manual_seed(1))
+            local, aux_l = PM.moe_ffn(pm, x, cfg)
+            with use_mesh(host):
+                meshed, aux_m = PM.moe_ffn(pm, x, cfg)
+            err = float((meshed - local).abs().max())
+            aerr = abs(float(aux_m) - float(aux_l))
+            ok = (err <= MOE_TP_TOL * (1 + float(local.abs().max()))
+                  and aerr <= MOE_TP_TOL * abs(float(aux_l)))
+            log(f"[mesh] moe tp {arch} under {host}: max err {err:.3g}, "
+                f"aux err {aerr:.3g} (tol {MOE_TP_TOL}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"mesh: moe tp {arch}")
+
+        x = torch.randn(1_000_003, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(2)) * 3
+        got = C.compressed_allreduce(x, dist.group.WORLD)
+        q, s, _ = C.quantize_int8(torch.nn.functional.pad(
+            x, (0, (-x.numel()) % C.BLOCK)))
+        part = (q.float() * s[:, None])
+        pq, ps, _ = C.quantize_int8(part)
+        want = (pq.float() * ps[:, None]).reshape(-1)[:x.numel()]
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        log(f"[mesh] compressed_allreduce over {dist.get_backend()} at world "
+            f"1, {x.numel()} values: equal to the plain composition {ok}, "
+            f"max err vs x {float((got - x).abs().max()):.3g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("mesh: compressed_allreduce at world 1")
+        torch.cuda.synchronize()
+    finally:
+        if created:
+            meshes.destroy_process_group()
+    if dist.is_initialized():
+        failures.append("mesh: the process group is still up")
+    counts = {k: fleet.LAUNCHES[k] for k in ALL_KERNELS}
+    for k, n in counts.items():
+        launches.setdefault(k, {})["mesh"] = n
+    failures += [f"mesh launched kernel {k} {n} times"
+                 for k, n in counts.items() if n]
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s, group destroyed: "
+        f"{not dist.is_initialized()} "
+        f"{'ok' if not failures else 'FAIL: ' + '; '.join(failures)}")
+    return failures
+
+
 def left_processes() -> list[str]:
     """Processes descended from this one that still exist (running or
     ended and not yet reaped), read from /proc."""
@@ -2614,9 +3297,9 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if "train" in phases:
-        # deterministic cuBLAS for the resume check (read when cuBLAS
-        # starts, so before any work on the card)
+    if {"train", "examples", "mesh"} & set(phases):
+        # deterministic cuBLAS for the resume and bit-for-bit checks
+        # (read when cuBLAS starts, so before any work on the card)
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
@@ -2734,6 +3417,10 @@ def main(argv=None) -> int:
         failures += phase_campaign(fleet, launches, kern)
     if "train" in phases:
         failures += phase_train(fleet, launches, kern)
+    if "examples" in phases:
+        failures += phase_examples(fleet, launches, kern)
+    if "mesh" in phases:
+        failures += phase_mesh(fleet, launches)
 
     failures += stop_processes()
 
@@ -2750,7 +3437,8 @@ def main(argv=None) -> int:
         "ssd": "src/repro/kernels/ssd.py:23"}
     # a kernel's ``launches`` is the count on the path of the slice that
     # ported it, where that path ran (else the most any path made);
-    # ``launches_by_path`` has each path (``train``: 0 for every kernel)
+    # ``launches_by_path`` has each path (``train``, ``mesh`` and the
+    # training examples: 0 for every kernel)
     home = dict.fromkeys(FLEET_KERNELS, "simulator")
     home.update(dict.fromkeys(SERVING_KERNELS, "serving"))
     home.update(dict.fromkeys(RECURRENT_KERNELS, "recurrent"))

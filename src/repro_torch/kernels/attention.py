@@ -86,9 +86,11 @@ def _on_cuda(*tensors) -> bool:
     """True for CUDA tensors (one device); False for CPU tensors; raises
     on anything else. Unlike the fleet kernels these take strided views,
     so only the last dimension must be contiguous. K4-K7 are
-    forward-only: a CUDA tensor that requires grad raises, since the
-    kernel's output would carry no gradient back to it (the models take
-    the plain versions while autograd records)."""
+    forward-only: while autograd records, a CUDA tensor that requires
+    grad raises, since the kernel's output would carry no gradient back
+    to it (the models take the plain versions then); under ``no_grad``
+    (a prefill from trainable weights) nothing is recorded and the
+    kernel runs."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(
@@ -98,7 +100,7 @@ def _on_cuda(*tensors) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             "the attention and recurrent kernels are forward-only: an "
             "input requires grad, and the kernel's output would not carry "

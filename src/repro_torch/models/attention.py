@@ -19,9 +19,12 @@ Routes, by the device of the tensors (the port's rule, as in
   on the CPU its wrapper runs the plain gather-and-softmax version.
 
 ``cfg.use_pallas`` keeps its field but has no card counterpart: the
-kernels are the port's only device path. The reference's sharding
-``constrain`` calls and its ``partials``/``grouped`` decode layouts are
-single-card no-ops here; they compute the same function.
+kernels are the port's only device path. Of the reference's sharding
+``constrain`` calls the port keeps the one on the queries (heads over
+"model", batch over the data axes); the others pin the layout of its
+scan's carries, which the port's loop does not have. Its
+``partials``/``grouped`` decode layouts are single-card no-ops here;
+they compute the same function.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import attention as kern
 from repro_torch.models.layers import (apply_rope, cdtype, dense_init,
                                        recording, rope_angles)
+from repro_torch.parallel.sharding import constrain
 
 NEG_INF = -1e30
 
@@ -61,6 +65,7 @@ def qkv_proj(p: Attention, x, cfg: ModelConfig, positions=None):
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = constrain(q, "batch", None, "model", None)
     return q, k, v
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import replicate_model
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -45,12 +46,15 @@ def recording(*tensors) -> bool:
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                device, scale: float | None = None) -> nn.Parameter:
     scale = (1.0 / in_dim) ** 0.5 if scale is None else scale
-    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device)
-    return frozen((w * scale).to(device=device, dtype=dtype))
+    return normal_init(gen, (in_dim, out_dim), scale, dtype, device)
 
 
 def normal_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
                 device) -> nn.Parameter:
+    """N(0, scale²) weights drawn on the generator's device; on ``meta``
+    (shapes only, as ``jax.eval_shape`` gives them) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return frozen(torch.empty(shape, dtype=dtype, device="meta"))
     w = torch.randn(shape, generator=gen, device=gen.device)
     return frozen((w * scale).to(device=device, dtype=dtype))
 
@@ -172,7 +176,9 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, tokens, cfg: ModelConfig):
-    return F.embedding(tokens, p.embed.to(cdtype(cfg)))
+    # on a mesh the table is gathered over "model" first: DTensor's rule
+    # for a lookup into a vocab-sharded table fails on a 2-D mesh
+    return F.embedding(tokens, replicate_model(p.embed).to(cdtype(cfg)))
 
 
 def unembed(p: Embedding, x, cfg: ModelConfig):
@@ -185,7 +191,10 @@ def cross_entropy(logits, labels, mask=None):
     """logits (..., V) f32, labels int (...). Returns (mean_loss, n_tokens)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    # on a mesh the logits are gathered over the vocab ("model") first,
+    # for the same reason as in :func:`embed`
+    ll = torch.take_along_dim(replicate_model(logits), labels[..., None],
+                              dim=-1)[..., 0]
     nll = lse - ll
     mask = torch.ones_like(nll) if mask is None else mask.float()
     total = torch.clamp(mask.sum(), min=1.0)

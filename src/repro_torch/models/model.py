@@ -165,8 +165,10 @@ def build_model(cfg: ModelConfig, *, device="cuda",
     dev = check_device(device)
 
     def init_params(seed: int = 0) -> Decoder:
-        """Fresh weights drawn from ``seed`` on the model's device."""
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        """Fresh weights drawn from ``seed`` on the model's device (on
+        ``meta``, shapes only)."""
+        gen = torch.Generator(device="cpu" if dev.type == "meta"
+                              else dev).manual_seed(seed)
         return _weights(cfg, gen, dev, trainable)
 
     params = (init_params() if generator is None

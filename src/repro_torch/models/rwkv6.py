@@ -28,6 +28,7 @@ from repro_torch.kernels.rwkv6 import rwkv6_forward, rwkv6_forward_plain
 from repro_torch.models.layers import (cdtype, const_init, dense_init,
                                        group_norm_heads, normal_init, pdtype,
                                        recording)
+from repro_torch.parallel.sharding import replicate_model
 
 _MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -83,7 +84,10 @@ def _ddlerp(p: TimeMix, x, xprev, cfg: ModelConfig):
     dt = cdtype(cfg)
     dx = xprev - x
     base = x + dx * p.mu_base.to(dt)
-    h = torch.tanh(base @ p.w_mix1.to(dt))
+    # on a mesh h is gathered over "model" first: its model-sharded last
+    # dim does not split evenly into the 5 mixes, which DTensor's view
+    # refuses
+    h = replicate_model(torch.tanh(base @ p.w_mix1.to(dt)))
     h = h.reshape(*h.shape[:-1], 5, cfg.rwkv_lora_mix)
     off = torch.einsum("...fr,frd->...fd", h, p.w_mix2.to(dt))
     mix = p.mu.to(dt) + off                                     # (...,5,D)

@@ -30,6 +30,7 @@ from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.kvcache import write_slot
 from repro_torch.models.layers import (GLUMLP, Norm, apply_norm, cdtype,
                                        dense_init, glu_mlp)
+from repro_torch.parallel.sharding import constrain
 
 
 class Block(nn.Module):
@@ -102,8 +103,15 @@ def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
     """One decoder block (train/prefill); with ``enc_out`` (B, Se, D) its
     queries also attend, non-causally, over the encoder's keys. Returns
     (x, (k, v), aux)."""
+    # on a mesh the residual stream stays sharded over the batch (and,
+    # with Megatron-SP, the sequence over "model"), as the reference's
+    # blocks constrain it; a no-op on plain tensors
+    sp = "model" if cfg.seq_parallel else None
+    x = constrain(x, "batch", sp, None)
     a, (k, v) = attn.attention(p.attn, apply_norm(p.ln1, x, cfg), cfg,
                                positions, causal=causal)
+    if cfg.bf16_reduce:
+        a = constrain(a, "batch", sp, None)
     x = x + a
     if enc_out is not None:
         h = apply_norm(p.ln_cross, x, cfg)
@@ -113,6 +121,8 @@ def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
         B, S = x.shape[:2]
         x = x + o.reshape(B, S, cfg.q_dim) @ p.cross.wo.to(cdtype(cfg))
     f, aux = _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
+    if cfg.bf16_reduce:
+        f = constrain(f, "batch", sp, None)
     return x + f, (k, v), aux
 
 

@@ -16,7 +16,11 @@ checkpoints and the port's reads the reference's. dtypes numpy lacks
 (bf16, the float8s) are stored as raw unsigned views made through
 torch, the logical dtype in the manifest. ``save`` takes its host copy
 before it returns; the async writer thread works from that copy, so
-the train loop may go on changing the state. Keeps the newest k.
+the train loop may go on changing the state. Keeps the newest k. A
+state placed on a mesh (DTensors) is gathered whole on every rank —
+each rank calls ``save`` — and written by rank 0; ``restore`` reads it
+whole on every rank and, given ``shardings``, places it on this run's
+mesh, whatever mesh wrote it (the elastic-restart path).
 """
 from __future__ import annotations
 
@@ -28,8 +32,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from repro_torch.parallel.sharding import full
 from repro_torch.training.train_step import (TrainState, load_state_tree,
                                              state_tree)
 
@@ -106,7 +112,7 @@ def _from_disk(arr: np.ndarray, logical: str) -> torch.Tensor:
 
 def _host_copy(t) -> Any:
     if isinstance(t, torch.Tensor):
-        return t.detach().to("cpu", copy=True)
+        return full(t.detach()).to("cpu", copy=True)
     return np.array(t, copy=True)
 
 
@@ -114,12 +120,15 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
          async_: bool = False) -> threading.Thread | None:
     """Write a checkpoint of ``tree`` (nested dicts, tuples and
     NamedTuples of tensors or arrays, or a TrainState). Returns the
-    writer thread when async."""
+    writer thread when async; None on ranks other than 0, which only
+    take part in gathering a placed state."""
     if _is_state(tree):
         host_tree = state_tree(tree, leaf=_host_copy)
     else:
         host_tree = _unflatten(tree, iter([_host_copy(x)
                                            for x in _flatten(tree)]))
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
     host = [_to_disk(x) for x in _flatten(host_tree)]
     struct = _structure(host_tree)
 
@@ -180,11 +189,13 @@ def _like_leaf(ref, arr: torch.Tensor):
     return arr.numpy().astype(np.asarray(ref).dtype)
 
 
-def restore(ckpt_dir: str, like: Any, *,
-            step: int | None = None) -> tuple[int, Any]:
+def restore(ckpt_dir: str, like: Any, *, step: int | None = None,
+            shardings: Any = None) -> tuple[int, Any]:
     """Restore into the structure of ``like``: each leaf in ``like``'s
-    leaf's type, dtype and device. For a TrainState, a state on
-    ``like``'s module (its weights replaced) and device."""
+    leaf's type, dtype and device. For a TrainState (its tensors plain),
+    a state on ``like``'s module (its weights replaced) and device, and
+    with ``shardings`` (a :class:`~repro_torch.launch.specs.StateShardings`)
+    placed by it."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoints under {ckpt_dir}")
@@ -211,4 +222,6 @@ def restore(ckpt_dir: str, like: Any, *,
     tree = _unflatten(like, iter(leaves))
     if state is not None:
         tree = load_state_tree(state, tree)
+        if shardings is not None:
+            tree = shardings.place(tree)
     return step, tree

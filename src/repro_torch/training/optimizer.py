@@ -5,7 +5,8 @@ Functional, as the reference is: :func:`adamw_update` takes the weights,
 gradients and moments as dicts of tensors {name: tensor} and returns new
 ones, in the reference's f32 arithmetic and order (``b ** step`` in f32,
 the clip scale, ``(p - lr·delta).to(p.dtype)``). The moments mirror the
-weights' names; on one card ZeRO-1 sharding of them is a no-op.
+weights' names; on a mesh ZeRO-1 shards them over the data axes
+(:class:`~repro_torch.launch.specs.StateShardings`).
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ masters that require grad, ``build_model(..., trainable=True)``) and
 the optimizer state, whose moments are dicts keyed by the weights'
 qualified names. ``train_step(state, batch)`` computes the gradients
 with autograd, updates through the functional :func:`adamw_update`,
-then moves the new weights into the module: like the reference's
+then moves the new weights into the module (on a mesh, copies them into
+the placed weights): like the reference's
 launcher, which donates the old state to ``jit``, it consumes the state
 it is given. :func:`state_tree` / :func:`load_state_tree` convert a
 state to and from the reference's pytree layout (weights stacked over
@@ -24,6 +25,7 @@ from torch import nn
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.model import Model, unstack_tree, weight_tree
 from repro_torch.parallel.compression import maybe_compress_grads
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.training.optimizer import (OptState, adamw_update,
                                             init_opt_state)
 
@@ -112,7 +114,13 @@ def make_train_step(model: Model, tc: TrainConfig):
         named = weights(state.params)
         new, opt, opt_metrics = adamw_update(named, grads, state.opt, tc)
         for k, p in named.items():
-            p.data = new[k]
+            if is_dtensor(p):
+                # a DTensor's ``.data`` would not reach its local shard:
+                # copy in, which also keeps the weight's placements
+                with torch.no_grad():
+                    p.copy_(new[k])
+            else:
+                p.data = new[k]
         metrics = dict(metrics, **opt_metrics, total_loss=loss)
         return TrainState(state.params, opt), metrics
 

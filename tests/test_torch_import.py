@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (the sim path, the
-serving path, the campaign harness, the benchmarks and the training
-path) loads neither jax nor the JAX package, no port source
+serving path, the campaign harness, the benchmarks, the training path,
+the sharding layer and the examples) loads neither jax nor the JAX
+package, no port source
 imports either, and the GPU engine refuses to run without a card unless
 the caller asks for the CPU."""
 import dataclasses
@@ -30,6 +31,14 @@ import repro_torch.benchmarks.serving_bench, repro_torch.benchmarks.paper_figs
 import repro_torch.training.optimizer, repro_torch.training.train_step
 import repro_torch.training.checkpoint, repro_torch.data.pipeline
 import repro_torch.parallel.compression, repro_torch.launch.train
+import repro_torch.parallel.sharding, repro_torch.launch.mesh
+import repro_torch.launch.specs
+import repro_torch.examples.quickstart, repro_torch.examples.train_100m
+import repro_torch.examples.elastic_restart
+import repro_torch.examples.multitenant_serve
+import repro_torch.examples.federation_demo
+import torch.distributed
+assert not torch.distributed.is_initialized()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -334,5 +334,5 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
     assert "resumed from step 3" in out
     assert "step    3 loss=" in out and "step    2 loss=" not in out
     assert ckpt.latest_steps(d) == [3, 4, 5]
-    with pytest.raises(SystemExit, match="one card"):
+    with pytest.raises(RuntimeError, match="needs 256 ranks; this run has 1"):
         main(args + ["--production-mesh"])
