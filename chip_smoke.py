@@ -59,7 +59,12 @@ per source, all at once) and drives the port's three paths:
   launcher on ``make_host_mesh()`` equal bit for bit to the run with no
   group, MoE ``tp`` under the (1, 1) mesh against the local function,
   ``compressed_allreduce`` against its plain composition; the group
-  destroyed.
+  destroyed;
+* the dry-run (phase ``dryrun``): three cells at full width accounted
+  on the fake 256-rank (16, 16) mesh on the host (nothing allocated on
+  the card, no group left), the one-rank account of the train phase's
+  step against that step run on the card (FLOPs and peak memory), and
+  the torch engine's row sharding on one card equal to ``shard=False``.
 
 Each path's launch counts are reset just before it and read just after.
 At the end the campaign's fork server is stopped and no process this
@@ -74,6 +79,7 @@ any failure.
     python3 chip_smoke.py --phases env,campaign
     python3 chip_smoke.py --phases env,train
     python3 chip_smoke.py --phases env,examples,mesh
+    python3 chip_smoke.py --phases env,dryrun
 
 The line before the last is the card (``nvidia-smi`` name and power
 limit) and, before that, the per-kernel JSON record; the last line is
@@ -98,7 +104,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "paper", "mega", "serving", "recurrent",
-          "families", "campaign", "train", "examples", "mesh")
+          "families", "campaign", "train", "examples", "mesh", "dryrun")
 VR_TOL = 0.02           # engine="torch" vs the port's batched engine
 CPU_GPU_VR_TOL = 1e-3   # the same engine on the card and on the CPU
 SUM_RTOL = 1e-5         # f32 row sums in another order (K1/K2 else exact)
@@ -201,6 +207,17 @@ T100M_MIN_DROP = 1.0
 # under a (1, 1) mesh within MOE_TP_TOL of local (f32)
 MESH_STEPS = 3
 MOE_TP_TOL = 1e-5
+# dryrun: three cells at full width on the fake (16, 16) mesh (the
+# hillclimb's: granite at 12 layers), host-only; the one-rank account of
+# the train phase's step against that step run on the card (FLOPs
+# within DRY_FLOP_RTOL, peak memory within DRY_PEAK_RTOL); the torch
+# engine's row sharding on one card against shard=False
+DRY_CELLS = (("tinyllama-1.1b", "train_4k", {}),
+             ("olmoe-1b-7b", "train_4k", {}),
+             ("granite-8b", "decode_32k", {"num_layers": 12}))
+DRY_FLOP_RTOL = 0.01
+DRY_PEAK_RTOL = 0.25
+DRY_SHARD_SCENARIO = "paper_game_32"
 ALL_KERNELS = FLEET_KERNELS + SERVING_KERNELS + ("rwkv6", "ssd")
 
 
@@ -3243,6 +3260,154 @@ def phase_mesh(fleet, launches: dict) -> list:
     return failures
 
 
+def dryrun_cells(failures: list) -> None:
+    """DRY_CELLS on the fake (16, 16) mesh: each row's terms on a
+    ``[dryrun]`` line; a status other than ok, an allocation on the card
+    or a process group left after the cells is a failure."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as D
+
+    before = torch.cuda.memory_allocated()
+    for arch, shape, ov in DRY_CELLS:
+        t0 = time.perf_counter()
+        try:
+            r = D.run_cell(arch, shape, False, overrides=ov)
+        except Exception as e:  # a cell that raises is a failed cell
+            r = {"status": f"error {type(e).__name__}: {e}"}
+        depth = f" (L {ov['num_layers']})" if "num_layers" in ov else ""
+        if r["status"] != "ok":
+            failures.append(f"dryrun {arch} x {shape}: {r['status']}")
+            log(f"[dryrun] {arch} x {shape}{depth}: {r['status']} FAIL")
+            continue
+        mem = r["memory"]
+        log(f"[dryrun] {arch} x {shape}{depth} on {r['n_chips']} ranks "
+            f"(host-only): compute_s={r['compute_s']!r} "
+            f"memory_s={r['memory_s']!r} "
+            f"collective_s={r['collective_s']!r} dominant={r['dominant']} "
+            f"hlo_flops={r['hlo_flops']!r} hlo_bytes={r['hlo_bytes']!r} "
+            f"wire={r['collectives']['wire_bytes_per_chip']!r} "
+            f"useful={r['useful_flops_frac']!r} "
+            f"peak_bytes={mem['peak_bytes']} "
+            f"argument_bytes={mem['argument_bytes']} "
+            f"build {r['lower_s']} s, step {r['compile_s']} s, "
+            f"wall {time.perf_counter() - t0:.1f} s ok")
+    moved = torch.cuda.memory_allocated() - before
+    if moved:
+        failures.append(f"dryrun cells moved the card's memory by {moved}")
+    if dist.is_initialized():
+        failures.append("dryrun: a process group outlived the cells")
+    log(f"[dryrun] card memory moved by {moved} bytes during the cells; "
+        f"group up after them: {dist.is_initialized()}")
+
+
+def dryrun_cross_check(failures: list) -> None:
+    """The one-rank account of the train phase's step (full-width
+    TRAIN_ARCH, seq TRAIN_SEQ, batch TRAIN_BATCH in TRAIN_MICROBATCHES,
+    remat "selective", no group) against the same step run on the card
+    under FlopCounterMode: FLOPs within DRY_FLOP_RTOL, peak memory (less
+    what the card held before the state was built) within
+    DRY_PEAK_RTOL."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.parallel.sharding import Mesh
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="selective")
+    shape = ShapeConfig("train_phase", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tc = TrainConfig(microbatches=TRAIN_MICROBATCHES, **TRAIN_TC)
+    one = Mesh(None, ("data", "model"), np.zeros((1, 1), int))
+    t0 = time.perf_counter()
+    fake = D.account_cell(TRAIN_ARCH, shape, one, tc, cfg=cfg)
+    t_fake = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args, _ = D.build_step(TRAIN_ARCH, shape, one, tc, cfg=cfg,
+                                  device=DEVICE)
+    t1 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    torch.cuda.synchronize()
+    t_real = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    real_flops = fc.get_total_flops()
+    f_rel = fake["hlo_flops"] / real_flops - 1
+    p_rel = fake["memory"]["peak_bytes"] / peak - 1
+    ok = abs(f_rel) <= DRY_FLOP_RTOL and abs(p_rel) <= DRY_PEAK_RTOL
+    log(f"[dryrun] cross-check {TRAIN_ARCH} seq {TRAIN_SEQ} batch "
+        f"{TRAIN_BATCH} in {TRAIN_MICROBATCHES} microbatches, remat "
+        f"selective, one rank: FLOPs accounted {fake['hlo_flops']!r} vs "
+        f"the card's step {real_flops!r} (rel {f_rel:+.3g}, tol "
+        f"{DRY_FLOP_RTOL}); peak accounted {fake['memory']['peak_bytes']} "
+        f"B vs the card's {peak} B (rel {p_rel:+.3g}, tol {DRY_PEAK_RTOL}); "
+        f"accounting {t_fake:.1f} s host, card step {t_real:.2f} s under "
+        f"FlopCounterMode; {smi_line()} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("dryrun cross-check against the card's step")
+
+
+def dryrun_shard_check(failures: list) -> None:
+    """DRY_SHARD_SCENARIO on the torch engine with ``shard`` True and
+    False on this one-card host: the same run bit for bit (one visible
+    card: nothing is padded)."""
+    import hashlib
+
+    from repro_torch.sim import SCENARIOS, run_scenario
+    from repro_torch.sim.engines.torch_backend import visible_devices
+
+    runs = {}
+    for shard in (True, False):
+        sc = dataclasses.replace(
+            SCENARIOS[DRY_SHARD_SCENARIO], engine="torch",
+            backend_options={"device": DEVICE, "shard": shard})
+        res = run_scenario(sc, quick=True)
+        h = hashlib.sha256()
+        for key in sorted(res.results):
+            for name in sorted(res.results[key].node_results):
+                h.update(res.results[key].node_results[name]
+                         .latencies.tobytes())
+        runs[shard] = (h.hexdigest(), {
+            k: (o.violation_rate, o.replaced, o.cloud)
+            for k, o in res.outcomes.items()})
+    ok = runs[True] == runs[False]
+    log(f"[dryrun] torch engine shard=True vs shard=False on "
+        f"{DRY_SHARD_SCENARIO} with {len(visible_devices(DEVICE))} visible "
+        f"card(s): equal bit for bit {ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("dryrun: shard=True differs from shard=False")
+
+
+def phase_dryrun(fleet, launches: dict) -> list:
+    """The port's dry-run (host-only) and the torch engine's row sharding
+    on the card: :func:`dryrun_cells`, :func:`dryrun_cross_check` and
+    :func:`dryrun_shard_check`. The cells and the cross-check's train
+    step launch no kernel (the ``dryrun`` path)."""
+    t0 = time.perf_counter()
+    failures = []
+    fleet.reset_launches()
+    dryrun_cells(failures)
+    dryrun_cross_check(failures)
+    counts = {k: fleet.LAUNCHES[k] for k in ALL_KERNELS}
+    for k, n in counts.items():
+        launches.setdefault(k, {})["dryrun"] = n
+    failures += [f"dryrun launched kernel {k} {n} times"
+                 for k, n in counts.items() if n]
+    dryrun_shard_check(failures)
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if not failures else 'FAIL: ' + '; '.join(failures)}")
+    return failures
+
+
 def left_processes() -> list[str]:
     """Processes descended from this one that still exist (running or
     ended and not yet reaped), read from /proc."""
@@ -3421,6 +3586,8 @@ def main(argv=None) -> int:
         failures += phase_examples(fleet, launches, kern)
     if "mesh" in phases:
         failures += phase_mesh(fleet, launches)
+    if "dryrun" in phases:
+        failures += phase_dryrun(fleet, launches)
 
     failures += stop_processes()
 
@@ -3437,8 +3604,8 @@ def main(argv=None) -> int:
         "ssd": "src/repro/kernels/ssd.py:23"}
     # a kernel's ``launches`` is the count on the path of the slice that
     # ported it, where that path ran (else the most any path made);
-    # ``launches_by_path`` has each path (``train``, ``mesh`` and the
-    # training examples: 0 for every kernel)
+    # ``launches_by_path`` has each path (``train``, ``mesh``, ``dryrun``
+    # and the training examples: 0 for every kernel)
     home = dict.fromkeys(FLEET_KERNELS, "simulator")
     home.update(dict.fromkeys(SERVING_KERNELS, "serving"))
     home.update(dict.fromkeys(RECURRENT_KERNELS, "recurrent"))

@@ -270,6 +270,14 @@ def main(argv: list[str] | None = None) -> None:
                 f"sub-second={r['sub_second']}")
         _persist_section("overhead", rows, args.quick)
 
+    if want("roofline"):
+        from repro_torch.benchmarks.roofline_report import roofline_table
+        rows = roofline_table()
+        results["roofline"] = rows
+        ok = [r for r in rows if r.get("status") == "ok"]
+        _csv("roofline/cells_ok", 0.0,
+             f"{len(ok)} cells with roofline terms (see EXPERIMENTS.md)")
+
     os.makedirs("results", exist_ok=True)
     with open("results/torch_benchmarks.json", "w") as f:
         json.dump(results, f, indent=2, default=str)

@@ -9,10 +9,12 @@ where none is. A run of one rank that no group was brought up for
 (one card, or the CPU, started without ``torchrun``) gets a mesh of one
 rank with no group behind it, on which every placement is Replicate.
 The backend is NCCL on ``cuda`` and gloo on ``cpu``; NCCL takes one
-rank a card.
+rank a card. The dry-run alone builds its meshes over
+:func:`fake_process_group`, a group of any size that moves no data.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 
@@ -49,6 +51,27 @@ def init_process_group(device="cuda") -> bool:
     dist.init_process_group(backend_for(dev), init_method=init, rank=rank,
                             world_size=world)
     return True
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """A default process group of ``world`` ranks that moves no data
+    (torch's fake backend over a ``FakeStore``), this process its rank
+    0, destroyed on exit: the dry-run's, which accounts one rank's share
+    of a production mesh that no run has. Raises where a group is up
+    already; it never joins or replaces one."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up already; the dry-run "
+                           "brings up its own fake one")
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def world_size() -> int:

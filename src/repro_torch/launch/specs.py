@@ -121,18 +121,12 @@ class StateShardings(NamedTuple):
         """``state`` with every weight and moment a DTensor of its spec
         (gathered first where it was placed otherwise); on a mesh of one
         rank, the state as it is."""
-        from torch import nn
-
         from repro_torch.training.optimizer import OptState
         from repro_torch.training.train_step import TrainState
 
         if self.mesh.size == 1:
             return state
-        for n, p in list(state.params.named_parameters()):
-            owner, _, attr = n.rpartition(".")
-            setattr(state.params.get_submodule(owner), attr, nn.Parameter(
-                place(full(p.detach()), self.mesh, self.params[n]),
-                requires_grad=p.requires_grad))
+        self.place_params(state.params)
         opt = state.opt
         return TrainState(state.params, OptState(
             step=full(opt.step),
@@ -140,6 +134,20 @@ class StateShardings(NamedTuple):
                for n, t in opt.m.items()},
             v={n: place(full(t), self.mesh, self.moments[n])
                for n, t in opt.v.items()}))
+
+    def place_params(self, module) -> None:
+        """Replace each of ``module``'s weights with a DTensor of its spec
+        (a serving model's, which has no moments); on a mesh of one rank,
+        nothing."""
+        from torch import nn
+
+        if self.mesh.size == 1:
+            return
+        for n, p in list(module.named_parameters()):
+            owner, _, attr = n.rpartition(".")
+            setattr(module.get_submodule(owner), attr, nn.Parameter(
+                place(full(p.detach()), self.mesh, self.params[n]),
+                requires_grad=p.requires_grad))
 
     def constrain(self, state):
         """The reference's ``out_shardings``: each moment of a state the

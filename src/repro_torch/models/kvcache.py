@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.fleet import check_device
+from repro_torch.parallel.sharding import is_dtensor, shard_offset
 
 
 # ---------------------------------------------------------------- dense
@@ -43,12 +44,46 @@ def init_dense_cache(cfg: ModelConfig, batch: int, max_len: int,
 def write_slot(cache_layer, k_new, v_new, slot):
     """cache_layer: (k, v) each (B, S, KH, hd); k_new/v_new (B, 1, KH, hd);
     slot (B,) int — write the new token's K/V into its slot, in place
-    (cast to the cache's dtype)."""
+    (cast to the cache's dtype). On a mesh (DTensor caches) each rank
+    writes its own shard (:func:`_write_shard`)."""
     k_cache, v_cache = cache_layer
+    if is_dtensor(k_cache):
+        _write_shard(k_cache, k_new[:, 0], slot)
+        _write_shard(v_cache, v_new[:, 0], slot)
+        return k_cache, v_cache
     b = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache[b, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[b, slot] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _write_shard(cache, new, slot) -> None:
+    """Write ``new`` (B, KH, hd) at ``slot`` (B,) into this rank's shard of
+    the DTensor ``cache`` (B, S, KH, hd), in place: DTensor has no
+    in-place rule for the indexed write into a sharded cache. ``new``
+    and ``slot`` take the cache's batch and head placements (a local
+    slice where they were replicated); where the mesh shards the
+    sequence, a rank writes only the rows whose slot falls in its range
+    (the shards are even: a spec shards only the dims it divides)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    to_new = {0: Shard(0), 2: Shard(1)}
+    new_pl, slot_pl = [], []
+    for pl in cache.placements:
+        d = pl.dim if isinstance(pl, Shard) else None
+        new_pl.append(to_new.get(d, Replicate()))
+        slot_pl.append(Shard(0) if d == 0 else Replicate())
+    local = cache._local_tensor
+    new = new.redistribute(mesh, new_pl).to_local().to(local.dtype)
+    slot = slot.redistribute(mesh, slot_pl).to_local() if is_dtensor(slot) \
+        else slot
+    s_local = local.shape[1]
+    idx = slot - shard_offset(cache, 1)
+    inside = (idx >= 0) & (idx < s_local)
+    idx = idx.clamp(0, s_local - 1)
+    b = torch.arange(local.shape[0], device=local.device)
+    local[b, idx] = torch.where(inside[:, None, None], new, local[b, idx])
 
 
 class TensorSpec(NamedTuple):

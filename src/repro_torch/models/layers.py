@@ -18,7 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.parallel.sharding import replicate_model
+from repro_torch.parallel.sharding import (dtensor_axis_size, is_dtensor,
+                                           reduce_partial,
+                                           reduce_partial_grad,
+                                           replicate_model,
+                                           replicate_model_grad)
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
@@ -71,7 +75,7 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 # ---------------------------------------------------------------- norms
 def rms_norm(x, scale, eps: float = 1e-6):
     dt = x.dtype
-    x = x.float()
+    x = reduce_partial(x.float())
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
@@ -79,7 +83,7 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
     dt = x.dtype
-    x = x.float()
+    x = reduce_partial(x.float())
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
@@ -89,7 +93,7 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 def group_norm_heads(x, scale, bias, eps: float = 64e-5):
     """Per-head LayerNorm used by RWKV-6 (x: ..., H, K), in f32."""
     dt = x.dtype
-    x = x.float()
+    x = reduce_partial(x.float())
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
@@ -109,9 +113,32 @@ class Norm(nn.Module):
 
 
 def apply_norm(p: Norm, x, cfg: ModelConfig):
+    """The block's norm; on a mesh, the input of its column-parallel
+    products, whose gradient it reduces (:func:`reduce_partial_grad`)."""
     if p.bias is not None:
-        return layer_norm(x, p.scale, p.bias)
-    return rms_norm(x, p.scale)
+        return reduce_partial_grad(layer_norm(x, p.scale, p.bias))
+    return reduce_partial_grad(rms_norm(x, p.scale))
+
+
+# ---------------------------------------------------------------- heads
+def split_heads(t, heads: int, head_dim: int):
+    """(..., heads·head_dim) → (..., heads, head_dim). On a mesh whose
+    "model" axis does not divide ``heads``, a projection sharded over
+    "model" is gathered over it first: the view would split a head."""
+    if is_dtensor(t) and heads % dtensor_axis_size(t, "model"):
+        t = replicate_model(t)
+    return t.reshape(*t.shape[:-1], heads, head_dim)
+
+
+def merge_heads(t):
+    """(..., heads, head_dim) → (..., heads·head_dim); where the "model"
+    axis does not divide the heads (see :func:`split_heads`), the
+    gradient is gathered over "model" before the view's backward, which
+    would split a head."""
+    out = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    if is_dtensor(t) and t.shape[-2] % dtensor_axis_size(t, "model"):
+        out = replicate_model_grad(out)
+    return out
 
 
 # ---------------------------------------------------------------- RoPE

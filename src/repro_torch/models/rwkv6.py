@@ -26,9 +26,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6 import rwkv6_forward, rwkv6_forward_plain
 from repro_torch.models.layers import (cdtype, const_init, dense_init,
-                                       group_norm_heads, normal_init, pdtype,
-                                       recording)
-from repro_torch.parallel.sharding import replicate_model
+                                       group_norm_heads, merge_heads,
+                                       normal_init, pdtype, recording,
+                                       split_heads)
+from repro_torch.parallel.sharding import (is_dtensor, replicate_model,
+                                           replicated_like)
 
 _MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -104,20 +106,19 @@ def _decay(p: TimeMix, xw, cfg: ModelConfig):
 def _rkvwg(p: TimeMix, x, xprev, cfg: ModelConfig):
     dt = cdtype(cfg)
     m = _ddlerp(p, x, xprev, cfg)
-    shp = (*x.shape[:-1], cfg.rwkv_heads, cfg.rwkv_head_size)
-    r = (m["r"] @ p.wr.to(dt)).reshape(shp)
-    k = (m["k"] @ p.wk.to(dt)).reshape(shp)
-    v = (m["v"] @ p.wv.to(dt)).reshape(shp)
+    H, K = cfg.rwkv_heads, cfg.rwkv_head_size
+    r = split_heads(m["r"] @ p.wr.to(dt), H, K)
+    k = split_heads(m["k"] @ p.wk.to(dt), H, K)
+    v = split_heads(m["v"] @ p.wv.to(dt), H, K)
     g = F.silu(m["g"] @ p.wg.to(dt))
-    w = _decay(p, m["w"], cfg).reshape(shp)                     # f32
+    w = split_heads(_decay(p, m["w"], cfg), H, K)               # f32
     return r, k, v, w, g
 
 
 def _out(p: TimeMix, o, g, cfg: ModelConfig):
     dt = cdtype(cfg)
-    lead = o.shape[:-2]
     o = group_norm_heads(o.to(dt), p.ln_x_scale, p.ln_x_bias)
-    o = o.reshape(*lead, cfg.d_model) * g
+    o = merge_heads(o) * g
     return o @ p.wo.to(dt)
 
 
@@ -131,9 +132,40 @@ def time_mix(p: TimeMix, x, cfg: ModelConfig, state=None):
     s0 = None if state is None else state[1]
     run = (rwkv6_forward_plain if recording(r, k, v, w, p.u, s0)
            else rwkv6_forward)
-    o, s_fin = run(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                   w.transpose(1, 2), p.u, init_state=s0)
+    o, s_fin = _on_shards(run, r.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), w.transpose(1, 2), p.u, s0)
     return _out(p, o.transpose(1, 2), g, cfg), (x[:, -1], s_fin)
+
+
+def _on_shards(run, r, k, v, w, u, s0):
+    """``run(r, k, v, w, u, init_state=s0)`` (r, k, v, w (B, H, T, K)); on
+    a mesh, on each rank's shards: the recurrence is independent across
+    the batch and the heads, over which alone the mesh splits it, so the
+    ranks need no collective, and each runs it as one card does (rather
+    than one DTensor dispatch per step). The output and the final state
+    (B, H, K, K) take r's placements."""
+    if not is_dtensor(r):
+        return run(r, k, v, w, u, init_state=s0)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, pl = r.device_mesh, r.placements
+    # u (H, K): the rank's heads; its gradient from the rank's rows is a
+    # part of the whole, summed over the mesh dims that split the batch
+    u_pl = [Shard(0) if isinstance(q, Shard) and q.dim == 1 else Replicate()
+            for q in pl]
+    u_grad = [Partial() if isinstance(q, Shard) and q.dim == 0 else up
+              for q, up in zip(pl, u_pl)]
+
+    def local(t, placements, grads=None):
+        if not is_dtensor(t):
+            t = replicated_like(t, r)
+        return t.redistribute(mesh, placements).to_local(
+            grad_placements=grads)
+    o, s_fin = run(*(local(t, pl) for t in (r, k, v, w)),
+                   local(u, u_pl, u_grad),
+                   init_state=None if s0 is None else local(s0, pl))
+    return (DTensor.from_local(o, mesh, pl, run_check=False),
+            DTensor.from_local(s_fin, mesh, pl, run_check=False))
 
 
 def time_mix_step(p: TimeMix, x, cfg: ModelConfig, state):

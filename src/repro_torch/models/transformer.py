@@ -29,7 +29,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.kvcache import write_slot
 from repro_torch.models.layers import (GLUMLP, Norm, apply_norm, cdtype,
-                                       dense_init, glu_mlp)
+                                       dense_init, glu_mlp, merge_heads,
+                                       split_heads)
 from repro_torch.parallel.sharding import constrain
 
 
@@ -92,10 +93,9 @@ def _ffn(p: Block, x, cfg: ModelConfig):
 def cross_kv(p_cross: attn.Attention, enc_out, cfg: ModelConfig):
     """The encoder output's cross K/V, each (B, Se, KH, hd) (no RoPE)."""
     dt = cdtype(cfg)
-    B, Se, _ = enc_out.shape
-    shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
-    return ((enc_out @ p_cross.wk.to(dt)).reshape(shape),
-            (enc_out @ p_cross.wv.to(dt)).reshape(shape))
+    KH, hd = cfg.num_kv_heads, cfg.head_dim
+    return (split_heads(enc_out @ p_cross.wk.to(dt), KH, hd),
+            split_heads(enc_out @ p_cross.wv.to(dt), KH, hd))
 
 
 def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
@@ -118,8 +118,7 @@ def block_fwd(p: Block, x, cfg: ModelConfig, positions, *, causal=True,
         q, _, _ = attn.qkv_proj(p.cross, h, cfg, positions=None)
         ck, cv = cross_kv(p.cross, enc_out, cfg)
         o = attn.cross_attention(q, ck, cv, cfg)
-        B, S = x.shape[:2]
-        x = x + o.reshape(B, S, cfg.q_dim) @ p.cross.wo.to(cdtype(cfg))
+        x = x + merge_heads(o) @ p.cross.wo.to(cdtype(cfg))
     f, aux = _ffn(p, apply_norm(p.ln2, x, cfg), cfg)
     if cfg.bf16_reduce:
         f = constrain(f, "batch", sp, None)
@@ -162,6 +161,10 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
     dt = cdtype(cfg)
     B = x.shape[0]
     cross = "ck" in cache
+    # the mesh layouts of the dense decode (the reference passes them on
+    # the dense and MoE decoders' self attention only)
+    layout = {} if cross else {"partials": cfg.decode_partials,
+                               "grouped": cfg.decode_grouped}
     if cross:       # made on the card: a host copy would stall each layer
         cross_len = torch.full((B,), cache["ck"].shape[2], dtype=torch.int32,
                                device=x.device)
@@ -170,7 +173,8 @@ def decode_step_stack(layers: nn.ModuleList, x, cfg: ModelConfig, cache,
         hh = apply_norm(p.ln1, x, cfg)
         q, k, v = attn.qkv_proj(p.attn, hh, cfg, positions=pos[:, None])
         write_slot((kc, vc), k, v, slot)
-        o = attn.decode_attention(q, kc, vc, cache_len, window=window)
+        o = attn.decode_attention(q, kc, vc, cache_len, window=window,
+                                  **layout)
         x = x + o.reshape(B, 1, cfg.q_dim) @ p.attn.wo.to(dt)
         if cross:
             hc = apply_norm(p.ln_cross, x, cfg)

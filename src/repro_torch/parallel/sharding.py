@@ -138,15 +138,19 @@ def placements(spec: P, mesh: Mesh) -> tuple:
     """DTensor placements of a fitted ``spec`` on ``mesh``: ``Shard(d)`` on
     each mesh dim that entry ``d`` names (a tuple of axes shards dim d
     over each, the first major, as jax orders them), ``Replicate()`` on
-    the others."""
+    the others and on any axis of size 1 (a shard of one is the whole,
+    and DTensor's view rules refuse to merge a dim sharded even so)."""
     from torch.distributed.tensor import Replicate, Shard
 
     out = [Replicate()] * len(mesh.axis_names)
+    sizes = mesh.devices.shape
     for d, axes in enumerate(spec):
         if axes is None:
             continue
         for a in (axes,) if isinstance(axes, str) else axes:
-            out[mesh.axis_names.index(a)] = Shard(d)
+            i = mesh.axis_names.index(a)
+            if sizes[i] > 1:
+                out[i] = Shard(d)
     return tuple(out)
 
 
@@ -190,6 +194,57 @@ def replicate_model(t: torch.Tensor) -> torch.Tensor:
         for name, pl in zip(names, t.placements)])
 
 
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose pending sums (``Partial`` placements: the output
+    of a row-parallel product) are reduced, to Replicate on those mesh
+    dims; anything else as it is. A norm reduces its f32 input so: left
+    pending, the sums reach the next column-parallel product, for which
+    DTensor would rather gather the weight than reduce the
+    activation."""
+    if not is_dtensor(t) or not any(pl.is_partial() for pl in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if pl.is_partial() else pl for pl in t.placements])
+
+
+class _OnGrad(torch.autograd.Function):
+    """The identity, whose backward passes the gradient through ``fn``."""
+
+    @staticmethod
+    def forward(ctx, t, fn):
+        ctx.fn = fn
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def _on_grad(t: torch.Tensor, fn) -> torch.Tensor:
+    if not is_dtensor(t) or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _OnGrad.apply(t, fn)
+
+
+def replicate_model_grad(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient is gathered over "model" as
+    :func:`replicate_model` gathers a value; ``t`` itself where it is no
+    DTensor or autograd does not record."""
+    return _on_grad(t, replicate_model)
+
+
+def reduce_partial_grad(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient is reduced as :func:`reduce_partial` reduces
+    a value: the input of column-parallel products, whose backward
+    leaves the gradient as pending sums over "model" (Megatron's
+    conjugate all-reduce); left pending, the sums reach the
+    row-parallel product's backward, where DTensor would gather the
+    weight instead. ``t`` itself where it is no DTensor or autograd
+    does not record."""
+    return _on_grad(t, reduce_partial)
+
+
 def replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``t``, the same whole tensor on every rank, as a replicated DTensor
     on ``like``'s mesh (differentiably); ``t`` itself where ``like`` is
@@ -200,6 +255,26 @@ def replicated_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     mesh = like.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def dtensor_axis_size(t: torch.Tensor, name: str) -> int:
+    """The size of mesh axis ``name`` under DTensor ``t`` (1 where its
+    mesh has no such axis)."""
+    names = t.device_mesh.mesh_dim_names
+    return t.device_mesh.shape[names.index(name)] if name in names else 1
+
+
+def shard_offset(t: torch.Tensor, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of the
+    DTensor ``t``, whose shards are even (a spec shards only the dims its
+    axes divide): the mesh dims that shard ``dim``, the first major."""
+    from torch.distributed.tensor import Shard
+
+    mesh, n = t.device_mesh, 0
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            n = n * mesh.shape[i] + mesh.get_local_rank(i)
+    return n * t._local_tensor.shape[dim]
 
 
 def full(t: torch.Tensor) -> torch.Tensor:

@@ -58,9 +58,12 @@ GameWorkload); anything else raises with a pointer at
   factor through kernel K1 in float32. It is the counterpart of the
   JAX engine's ``pallas`` option and, like it, is off by default so
   that the controller's inputs stay float64.
-
-Not ported: the JAX engine's multi-device row sharding; one card means
-one device, so rows are never padded for a device count.
+* ``shard`` (bool, default True) — with more than one visible card
+  (:func:`visible_devices`), the rows are padded to a multiple of the
+  card count (padded rows carry ``totals = 0`` and are sliced away)
+  and each card runs the same kernels on its contiguous slice, as the
+  JAX engine shards its rows over devices. The draws are keyed per
+  row, so a sharded run equals the one-card run bit for bit.
 """
 from __future__ import annotations
 
@@ -120,6 +123,25 @@ def _chunk_word(t0: int, kind: int) -> int:
     return int(_mix32(np.uint32((2 * t0 + int(kind)) & 0xFFFFFFFF)))
 
 
+def visible_devices(device) -> list[torch.device]:
+    """The cards a sharded fleet spreads its rows over: every visible
+    CUDA device for a CUDA ``device``, else ``device`` alone."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _padded(x: np.ndarray, rows: int, fill=0) -> np.ndarray:
+    """``x`` with its leading axis padded to ``rows`` with ``fill``."""
+    if x.shape[0] == rows:
+        return x
+    out = np.full((rows,) + x.shape[1:], fill, x.dtype)
+    out[:x.shape[0]] = x
+    return out
+
+
 # ------------------------------------------------------------- stepper
 class TorchFleetStepper(FleetStepper):
     """Fleet stepper for ``engine="torch"`` (see module docstring for
@@ -135,6 +157,8 @@ class TorchFleetStepper(FleetStepper):
         opts = nodes[0].cfg.backend_options if nodes else {}
         self._scale_kernel = bool(opts.get("scale_kernel", False))
         self._dev = fleet.check_device(opts.get("device", "cuda"))
+        devs = visible_devices(self._dev) if opts.get("shard", True) else []
+        self._devs = devs if len(devs) > 1 else [self._dev]
 
     # -------------------------------------------------------- caches
     def _gather_rngs(self, entries: list) -> None:
@@ -146,22 +170,30 @@ class TorchFleetStepper(FleetStepper):
         super()._rebuild()
         entries = self._entries
         T = len(entries)
-        dev = self._dev
         seeds = np.empty(T, np.uint32)
         for node, sl in zip(self.nodes, self._node_slices):
             seeds[sl] = node.cfg.seed & 0xFFFFFFFF
         k0, k1 = _row_key_words(seeds, [name for _, name, _ in entries])
         self._k0 = k0
         self._k1 = k1
-        # int32 storage of the unsigned words (the kernels read uint32)
-        self._k0_d = torch.from_numpy(k0.view(np.int32)).to(dev)
-        self._k1_d = torch.from_numpy(k1.view(np.int32)).to(dev)
+        # the padded row count and each card's contiguous slice of it
+        nd = len(self._devs)
+        self._Tp = -(-T // nd) * nd
+        per = self._Tp // nd
+        self._shards = [(dev, d * per, (d + 1) * per)
+                        for d, dev in enumerate(self._devs)]
         self._scale_units: np.ndarray | None = None
         self._scale_cache: np.ndarray | None = None
-        self._sigma_d = torch.from_numpy(np.array(
-            [wl.jitter_sigma for _, _, wl in entries], np.float32)).to(dev)
         self._slo32_np = self._slos.astype(np.float32)
-        self._slo_d = torch.from_numpy(self._slo32_np).to(dev)
+        sigma = np.array([wl.jitter_sigma for _, _, wl in entries],
+                         np.float32)
+        # per card, its rows of: the key words (int32 storage of the
+        # unsigned words; the kernels read uint32), sigma and the SLOs
+        self._rows = [
+            tuple(self._put(x, dev, lo, hi) for x in (
+                k0.view(np.int32), k1.view(np.int32), sigma,
+                self._slo32_np))
+            for dev, lo, hi in self._shards]
         self._users_arr = np.array([wl.users() for _, _, wl in entries],
                                    np.int64)
         self._wan_np = np.asarray(self._wan, np.float64)
@@ -188,7 +220,16 @@ class TorchFleetStepper(FleetStepper):
                     f"class {cls.__name__}: it neither declares "
                     f"arrival_rng_free nor implements batch_arrival_lam; "
                     f"use engine='batched' for custom workload classes")
-            self._group_idx_d.append(torch.from_numpy(idx).to(dev))
+            # per card, the group's rows in its slice (local indices)
+            self._group_idx_d.append([
+                torch.from_numpy(idx[(idx >= lo) & (idx < hi)] - lo).to(dev)
+                for dev, lo, hi in self._shards])
+
+    def _put(self, x: np.ndarray, dev, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) of the host array ``x`` (padded with zeros past
+        its end) on ``dev``."""
+        return torch.from_numpy(np.ascontiguousarray(
+            _padded(x, self._Tp)[lo:hi])).to(dev)
 
     # -------------------------------------------------------- kernels
     def _arrival_counts(self, t0: int, t1: int) -> np.ndarray:
@@ -206,17 +247,21 @@ class TorchFleetStepper(FleetStepper):
             return cls.batch_arrival_counts(sub, [None] * len(sub), t0, t1)
         out = np.empty((T, S), np.int64)
         ch = _chunk_word(t0, _KIND_ARRIVAL)
-        for (cls, idx, sub), mode, idx_d in zip(groups, self._modes,
-                                                self._group_idx_d):
+        for (cls, idx, sub), mode, idx_ds in zip(groups, self._modes,
+                                                 self._group_idx_d):
             if mode == "free":
                 out[idx] = cls.batch_arrival_counts(
                     sub, [None] * len(sub), t0, t1)
                 continue
-            lam = cls.batch_arrival_lam(sub, t0, t1)
-            lam_d = torch.from_numpy(lam.astype(np.float32)).to(self._dev)
-            drawn = fleet.poisson(self._k0_d[idx_d], self._k1_d[idx_d], ch,
-                                  lam_d)
-            out[idx] = drawn.cpu().numpy()
+            lam = cls.batch_arrival_lam(sub, t0, t1).astype(np.float32)
+            for (dev, lo, hi), (k0, k1, _, _), idx_d in zip(
+                    self._shards, self._rows, idx_ds):
+                mine = (idx >= lo) & (idx < hi)
+                if not mine.any():
+                    continue
+                lam_d = torch.from_numpy(lam[mine]).to(dev)
+                drawn = fleet.poisson(k0[idx_d], k1[idx_d], ch, lam_d)
+                out[idx[mine]] = drawn.cpu().numpy()
         return out
 
     def _latency_scale(self, units: np.ndarray, t0: int,
@@ -237,13 +282,13 @@ class TorchFleetStepper(FleetStepper):
         fb = self._batch
         demand = fb.demand_rates(t0, t1)
         capacity = np.maximum(units, 1) * fb.unit_rate
-
-        def f32(x):
-            return torch.from_numpy(np.ascontiguousarray(
-                x, np.float32)).to(self._dev)
-
-        return fleet.latency_scale(f32(fb.base_pf), f32(fb.alpha),
-                                   f32(demand), f32(capacity)).cpu().numpy()
+        cols = (fb.base_pf, fb.alpha, demand, capacity)
+        parts = []
+        for dev, lo, hi in self._shards:
+            args = [self._put(np.asarray(x, np.float32), dev, lo, hi)
+                    for x in cols]
+            parts.append(fleet.latency_scale(*args).cpu().numpy())
+        return np.concatenate(parts)[:len(units)]
 
     # ---------------------------------------------------------- step
     # (the public step() lives on FleetStepper: it wraps this body with
@@ -301,16 +346,26 @@ class TorchFleetStepper(FleetStepper):
                          users_arr=self._users_arr)
 
     def _row_tiles(self, L: int):
-        """Row-tile extents keeping each dense (rows × L) call under
-        the cell budget."""
+        """(card index, card, lo, hi): row tiles of the padded fleet,
+        each within one card's slice, keeping each dense (rows × L) call
+        under the cell budget."""
         rows = max(1, _MAX_CELLS // max(L, 1))
-        T = len(self._entries)
-        return [(lo, min(lo + rows, T)) for lo in range(0, T, rows)]
+        return [(i, dev, lo, min(lo + rows, hi))
+                for i, (dev, s_lo, hi) in enumerate(self._shards)
+                for lo in range(s_lo, hi, rows)]
 
-    def _draw(self, mode, ch, lo, hi, cols, **kw):
-        return fleet.row_draw(mode, self._k0_d[lo:hi], self._k1_d[lo:hi],
-                              ch, cols=cols, sigma=self._sigma_d[lo:hi],
-                              **kw)
+    def _draw(self, mode, ch, i, lo, hi, cols, **kw):
+        """The K2 draw of rows [lo, hi) on card ``i`` (the caller passes
+        the other row tensors already there)."""
+        k0, k1, sigma, _ = self._rows[i]
+        off = self._shards[i][1]
+        sl = slice(lo - off, hi - off)
+        return fleet.row_draw(mode, k0[sl], k1[sl], ch, cols=cols,
+                              sigma=sigma[sl], **kw)
+
+    def _slo(self, i, lo, hi):
+        off = self._shards[i][1]
+        return self._rows[i][3][lo - off:hi - off]
 
     def _step_dense(self, ch, counts, scale, S, T):
         """≤1 request per tenant-second and a time-invariant scale
@@ -318,64 +373,61 @@ class TorchFleetStepper(FleetStepper):
         layout, so per-second violation attribution falls straight out
         of the kernel and the ragged cumsum/searchsorted tail is
         skipped. This is the mega-scale hot path."""
-        dev = self._dev
-        act_d = torch.from_numpy(counts > 0).to(dev)
-        scale_d = torch.from_numpy(
-            np.ascontiguousarray(scale[:, 0], np.float32)).to(dev)
+        Tp = self._Tp
+        active = counts > 0
+        scale32 = scale[:, 0].astype(np.float32)
         flat_parts = []
-        viol_ts = np.empty((T, S), bool)
-        lat_sums = np.empty(T, np.float64)
-        viol_t = np.empty(T, np.int64)
-        for lo, hi in self._row_tiles(S):
-            act = act_d[lo:hi]
+        viol_ts = np.empty((Tp, S), bool)
+        lat_sums = np.empty(Tp, np.float64)
+        viol_t = np.empty(Tp, np.int64)
+        for i, dev, lo, hi in self._row_tiles(S):
+            act = self._put(active, dev, lo, hi)
             lat_d, viol_d, lsum_d, vt_d = self._draw(
-                "dense", ch, lo, hi, S, scale=scale_d[lo:hi],
-                slo=self._slo_d[lo:hi], active=act)
+                "dense", ch, i, lo, hi, S,
+                scale=self._put(scale32, dev, lo, hi),
+                slo=self._slo(i, lo, hi), active=act)
             flat_parts.append(lat_d[act].cpu().numpy())
             viol_ts[lo:hi] = viol_d.cpu().numpy()
             lat_sums[lo:hi] = lsum_d.cpu().numpy()
             viol_t[lo:hi] = vt_d.cpu().numpy()
         flat_lat = (np.concatenate(flat_parts) if len(flat_parts) > 1
                     else flat_parts[0])
-        return flat_lat, viol_ts, viol_t, lat_sums
+        return flat_lat, viol_ts[:T], viol_t[:T], lat_sums[:T]
 
     def _step_const(self, ch, totals, scale, L, T):
         """Time-invariant scale column: latency, violations and row sums
         all come out of the fused kernel; only the ragged request axis
         is extracted (on the device) for the host."""
-        dev = self._dev
-        scale_d = torch.from_numpy(
-            np.ascontiguousarray(scale[:, 0], np.float32)).to(dev)
-        totals_d = torch.from_numpy(totals.astype(np.int32)).to(dev)
-        ar = torch.arange(L, device=dev)
+        Tp = self._Tp
+        scale32 = scale[:, 0].astype(np.float32)
+        totals32 = totals.astype(np.int32)
         flat_parts, vflat_parts = [], []
-        lat_sums = np.empty(T, np.float64)
-        viol_t = np.empty(T, np.int64)
-        for lo, hi in self._row_tiles(L):
-            tot = totals_d[lo:hi]
+        lat_sums = np.empty(Tp, np.float64)
+        viol_t = np.empty(Tp, np.int64)
+        for i, dev, lo, hi in self._row_tiles(L):
+            tot = self._put(totals32, dev, lo, hi)
             lat_d, viol_d, lsum_d, vt_d = self._draw(
-                "fused", ch, lo, hi, L, scale=scale_d[lo:hi],
-                slo=self._slo_d[lo:hi], totals=tot)
-            valid = ar[None, :] < tot[:, None]
+                "fused", ch, i, lo, hi, L,
+                scale=self._put(scale32, dev, lo, hi),
+                slo=self._slo(i, lo, hi), totals=tot)
+            valid = torch.arange(L, device=dev)[None, :] < tot[:, None]
             flat_parts.append(lat_d[valid].cpu().numpy())
             vflat_parts.append(viol_d[valid].cpu().numpy())
             lat_sums[lo:hi] = lsum_d.cpu().numpy()
             viol_t[lo:hi] = vt_d.cpu().numpy()
         return (np.concatenate(flat_parts), np.concatenate(vflat_parts),
-                lat_sums, viol_t)
+                lat_sums[:T], viol_t[:T])
 
     def _step_varying(self, ch, totals, starts, scale, counts, slo_rep, L,
                       T):
         """Time-varying scale matrix (bursty game fleets): the kernel
         draws dense jitter; the per-request scale product and reductions
         run numpy-side on the flat request axis."""
-        dev = self._dev
-        totals_d = torch.from_numpy(totals).to(dev)
-        ar = torch.arange(L, device=dev)
         parts = []
-        for lo, hi in self._row_tiles(L):
-            jit_d = self._draw("jitter", ch, lo, hi, L)
-            valid = ar[None, :] < totals_d[lo:hi, None]
+        for i, dev, lo, hi in self._row_tiles(L):
+            jit_d = self._draw("jitter", ch, i, lo, hi, L)
+            valid = (torch.arange(L, device=dev)[None, :]
+                     < self._put(totals, dev, lo, hi)[:, None])
             parts.append(jit_d[valid].cpu().numpy())
         flat_jit = np.concatenate(parts)
         per_req = np.repeat(scale.ravel().astype(np.float32),

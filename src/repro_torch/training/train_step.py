@@ -85,7 +85,8 @@ def make_loss_and_grad(model: Model, tc: TrainConfig):
         return grad_fn
 
     def accumulated(params: nn.Module, batch):
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros like each weight: on a mesh, its shard, not a whole copy
+        acc = {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in weights(params).items()}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=next(iter(acc.values())).device)

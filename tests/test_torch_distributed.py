@@ -184,6 +184,32 @@ def test_moe_tp_on_1x2_mesh_matches_local(two_ranks, arch):
         assert rel <= MOE_TOL, (name, rel)
 
 
+@pytest.mark.parametrize("layout", ["p0g0", "p1g0", "p0g1", "p1g1"])
+@pytest.mark.parametrize("kv", [1, 2])
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_dense_decode_on_dtensors_matches_local(two_ranks, mesh, kv, layout):
+    """Two decode steps with the weights and the cache placed by their
+    specs (one KV head: the cache's sequence over "model"; two: its
+    heads), in each (partials, grouped) layout of the dense decode: the
+    logits within 1e-5 of the local decode's (the paged kernel's plain
+    version); each rank's cache writes land exactly where the local
+    ones do, their values within 1e-5 (the second step's keys and
+    values come from the first step's sums, in other orders)."""
+    ranks, _ = two_ranks
+    key = f"{mesh}/decode_kv{kv}"
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{key}/{layout}_logits"],
+                                   r[f"{key}/local_logits"],
+                                   rtol=1e-5, atol=1e-5)
+        for name in ("k", "v"):
+            got, want = r[f"{key}/{layout}_{name}"], r[f"{key}/local_{name}"]
+            init = r[f"{key}/init_{name}"]
+            written = want != init
+            assert written.any()
+            np.testing.assert_array_equal(got != init, written)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("mesh", ["1x2", "2x1"])
 @pytest.mark.parametrize("strategy", ["tp", "ep"])
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b"])

@@ -178,3 +178,89 @@ def test_torch_rejects_opaque_custom_workload():
                   round_interval=60)
     with pytest.raises(ValueError, match="batched"):
         run_scenario(sc)
+
+
+# ---------------------------------------------------------- row sharding
+def _odd_fleet_scenario(kind):
+    """One node of an odd number of tenants (a row is padded on two
+    devices): 7 game tenants (Poisson arrivals, the varying-scale path),
+    7 slow streams (the dense path) or 7 fast streams (the const
+    path)."""
+    from repro_torch.sim.workload import (StreamWorkload, make_game_fleet,
+                                          make_stream_fleet)
+
+    rng = np.random.default_rng(11)
+    if kind == "game":
+        wls = tuple(make_game_fleet(7, rng))
+    elif kind == "stream":
+        wls = tuple(make_stream_fleet(7, rng))
+    else:
+        wls = tuple(StreamWorkload(name=f"fast-{i}", base_latency=2.13,
+                                   work_per_request=8.0, unit_rate=1.0,
+                                   fps=float(rng.uniform(1.5, 3.0)))
+                    for i in range(7))
+    return Scenario(name=f"odd_{kind}", fleet=FleetSpec(workloads=wls),
+                    topology=TopologySpec(n_nodes=1, capacity_units=60),
+                    engine="torch", duration_s=180, round_interval=60)
+
+
+@pytest.mark.parametrize("kind,opts", [("game", {}), ("stream", {}),
+                                       ("fast", {}),
+                                       ("game", {"scale_kernel": True})])
+def test_torch_shard_over_two_devices_is_bitwise_one_device(
+        kind, opts, monkeypatch):
+    """shard=True over two (patched) devices pads the odd fleet to an
+    even row count, runs each half on its device and slices the padded
+    row away: latencies, violation rates and control outcomes equal the
+    unsharded run bit for bit, as the per-row keys promise."""
+    import torch
+
+    from repro_torch.sim.engines import torch_backend as tb
+
+    sc = _odd_fleet_scenario(kind)
+    one = run_scenario(dataclasses.replace(
+        sc, backend_options=dict(CPU, shard=False, **opts)))
+    seen = []
+
+    def two_cpus(device):
+        seen.append(device)
+        return [torch.device("cpu"), torch.device("cpu")]
+    monkeypatch.setattr(tb, "visible_devices", two_cpus)
+    two = run_scenario(dataclasses.replace(
+        sc, backend_options=dict(CPU, **opts)))
+    assert seen, "the sharded run never asked for its devices"
+    assert one.outcomes.keys() == two.outcomes.keys()
+    for k in one.outcomes:
+        a, b = one.outcomes[k], two.outcomes[k]
+        # every simulated field (the round overheads are wall clocks)
+        for f in ("violation_rate", "per_node_vr", "band_fractions",
+                  "replaced", "cloud", "recovered", "shed"):
+            assert getattr(a, f) == getattr(b, f), (k, f)
+        assert one.results[k].total_requests > 0
+    assert _lat_digest(one) == _lat_digest(two)
+
+
+def test_torch_shard_pads_rows_to_the_device_count(monkeypatch):
+    import torch
+
+    from repro_torch.sim.engines import torch_backend as tb
+
+    monkeypatch.setattr(tb, "visible_devices", lambda d: [
+        torch.device("cpu")] * 3)
+    fleet = P.make_game_fleet(7, np.random.default_rng(1))
+    node = P.EdgeNodeSim(fleet, P.SimConfig(engine="torch",
+                                            backend_options=CPU))
+    st = tb.TorchFleetStepper([node])
+    st._rebuild()
+    assert st._Tp == 9
+    assert [(lo, hi) for _, lo, hi in st._shards] == [(0, 3), (3, 6),
+                                                      (6, 9)]
+    # the padded rows' keys are zeros; the tenants' are the unsharded ones
+    keys = np.concatenate([r[0].numpy() for r in st._rows])
+    assert np.array_equal(keys[:7].view(np.uint32), st._k0)
+    assert not keys[7:].any()
+    node1 = P.EdgeNodeSim(fleet, P.SimConfig(
+        engine="torch", backend_options=dict(CPU, shard=False)))
+    st1 = tb.TorchFleetStepper([node1])
+    st1._rebuild()
+    assert st1._Tp == 7 and len(st1._shards) == 1

@@ -205,15 +205,16 @@ def launcher_args(**kw):
 
 
 @contextlib.contextmanager
-def f32_launcher():
-    """The launcher module with its reduced configs in f32 and a learning
-    rate at which every step moves the weights (1e-2, no warm-up), for a
-    1e-5 comparison; put back on the way out."""
+def f32_launcher(**overrides):
+    """The launcher module with its reduced configs in f32 (and
+    ``overrides``) and a learning rate at which every step moves the
+    weights (1e-2, no warm-up), for a 1e-5 comparison; put back on the
+    way out."""
     import repro_torch.launch.train as lt
 
     saved = lt.get_reduced, lt.TrainConfig
     lt.get_reduced = lambda arch, **kw: get_reduced(arch, dtype="float32",
-                                                    **kw)
+                                                    **overrides, **kw)
     lt.TrainConfig = functools.partial(TrainConfig, learning_rate=1e-2,
                                        warmup_steps=0)
     try:
@@ -242,9 +243,74 @@ def block_batches(seen: list):
         tfm.constrain = constrain
 
 
+#: the decode cases' layouts: (partials, grouped)
+DECODE_LAYOUTS = ((False, False), (True, False), (False, True), (True, True))
+
+
+def _decode_case(mesh, kv_heads):
+    """Reduced tinyllama-1.1b in f32 with ``kv_heads`` KV heads (2 shard
+    the cache's heads over "model" on (1, 2); 1 leaves it the sequence),
+    two decode steps from a seeded cache: locally (the paged kernel's
+    plain version) and, in each (partials, grouped) layout, with the
+    weights, cache, tokens and positions placed by the launcher's specs
+    (the dense decode, each rank writing its cache shard). Returns the
+    logits and the final caches, read whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import StateShardings, input_pspecs
+    from repro_torch.models import build_model
+
+    base = dataclasses.replace(get_reduced("tinyllama-1.1b"),
+                               dtype="float32", num_kv_heads=kv_heads)
+    B, S = 4, 16
+    rng = np.random.default_rng(7 + kv_heads)
+    specs = build_model(base, device="meta").input_specs(
+        ShapeConfig("decode", S, B, "decode"))
+    cache0 = {k: rng.standard_normal(sp.shape).astype(np.float32)
+              for k, sp in specs["cache"].items()}
+    tokens = rng.integers(0, base.vocab_size, (2, B))
+    pos0 = np.array([3, 9, 0, 13])
+
+    def run(cfg, mesh):
+        model = build_model(cfg, device="cpu")
+        cache = {k: torch.tensor(v) for k, v in cache0.items()}
+        tok = [torch.tensor(t) for t in tokens]
+        pos = [torch.tensor(pos0 + i) for i in range(2)]
+        if mesh is not None:
+            StateShardings.of(model.params, mesh,
+                              zero1=False).place_params(model.params)
+            ps = input_pspecs(cfg, specs, mesh)
+            cache = {k: place(v, mesh, ps["cache"][k])
+                     for k, v in cache.items()}
+            tok = [place(t, mesh, ps["token"]) for t in tok]
+            pos = [place(p, mesh, ps["pos"]) for p in pos]
+        logits = []
+        with use_mesh(mesh) if mesh is not None else \
+                contextlib.nullcontext(), implicit_replication():
+            for t, p in zip(tok, pos):
+                out, cache = model.decode_fn(model.params, cache, t, p)
+                logits.append(full(out).numpy())
+        return np.stack(logits), {k: full(v).numpy()
+                                  for k, v in cache.items()}
+
+    res = {f"init_{k}": v for k, v in cache0.items()}
+    logits, cache = run(base, None)
+    res["local_logits"] = logits
+    res.update({f"local_{k}": v for k, v in cache.items()})
+    for partials, grouped in DECODE_LAYOUTS:
+        cfg = dataclasses.replace(base, decode_partials=partials,
+                                  decode_grouped=grouped)
+        tag = f"p{int(partials)}g{int(grouped)}"
+        logits, cache = run(cfg, mesh)
+        res[f"{tag}_logits"] = logits
+        res.update({f"{tag}_{k}": v for k, v in cache.items()})
+    return res
+
+
 def scenario_two(rank, out, ckpt_dir):
-    """MoE ``tp`` and the default strategy on the host mesh (1, 2) and on
-    a (2, 1) mesh; the launcher on the host mesh (1, 2), writing
+    """MoE ``tp`` and the default strategy, and the decode cases, on the
+    host mesh (1, 2) and on a (2, 1) mesh; the launcher on the host mesh (1, 2), writing
     checkpoints to ``ckpt_dir``; the launcher on a (2, 1) mesh with
     ZeRO-1, the state the last step took recorded: each weight's
     placements and each moment's shard shape and placements against the
@@ -258,6 +324,9 @@ def scenario_two(rank, out, ckpt_dir):
                 for strategy in ("tp", "ep"):
                     res.update({f"{tag}/{k}": v for k, v in _moe_case(
                         arch, mesh, strategy).items()})
+            for kv in (1, 2):
+                res.update({f"{tag}/decode_kv{kv}/{k}": v
+                            for k, v in _decode_case(mesh, kv).items()})
 
         with block_batches([]) as seen:
             losses = lt.train(launcher_args(ckpt_dir=ckpt_dir,
@@ -303,10 +372,18 @@ def scenario_two(rank, out, ckpt_dir):
     np.savez(out, **res)
 
 
-def scenario_family(rank, out, arch):
-    """The launcher, reduced ``arch`` in f32, 2 steps, on the host mesh
-    (1, 2) and on a data-parallel (2, 1) mesh."""
-    with f32_launcher() as lt:
+def family_overrides(case: str) -> tuple[str, dict]:
+    """``arch`` or ``arch:kv``: the arch and its config overrides (``kv``
+    KV heads)."""
+    arch, _, kv = case.partition(":")
+    return arch, ({"num_kv_heads": int(kv)} if kv else {})
+
+
+def scenario_family(rank, out, case):
+    """The launcher, reduced ``case`` (:func:`family_overrides`) in f32, 2
+    steps, on the host mesh (1, 2) and on a data-parallel (2, 1) mesh."""
+    arch, overrides = family_overrides(case)
+    with f32_launcher(**overrides) as lt:
         res = {}
         for tag, shape in (("host", (1, 2)), ("data", (2, 1))):
             losses = lt.train(launcher_args(arch=arch, steps=2),
