@@ -1,13 +1,45 @@
 """Typed structured events for the flight recorder.
 
-One :class:`Event` per control-plane or federation decision, stamped
-with the virtual clock (``t``), the controller round index (``round``,
--1 when emitted outside a round), the node name, the tenant and its
-monitor slot (-1 when slot-less, e.g. the reference control plane),
-and a free-form ``cause`` string (eviction reason, fault window id,
-placement source...). ``detail`` carries event-specific numbers
-(units granted, queue depths, per-phase walls) and is ``None`` when
-empty so an event costs one small object.
+One :class:`Event` per control-plane or federation decision, engine
+call or request milestone, stamped with its emitter's clock (``t``: the
+virtual clock for the simulators and the serving federation,
+``time.perf_counter`` for the serving engine), the controller round
+index (``round``, -1 when emitted outside a round), the node name, the
+tenant and its monitor slot (-1 when slot-less, e.g. the reference
+control plane), and a free-form ``cause`` string (eviction reason,
+fault window id, placement source...). ``detail`` carries
+event-specific numbers (units granted, queue depths, per-phase walls)
+and is ``None`` when empty so an event costs one small object.
+
+A span's ``t`` stamps its end and ``detail["dur"]`` its length, both in
+seconds. The serving engine's spans:
+
+- ``engine_step``: one ``MultiTenantEngine.step()``; ``step`` is its
+  index. The ``prefill``, ``decode`` and ``round`` spans inside it are
+  its children.
+- ``prefill``: one request's prefill; ``rid``, ``ctx`` (tokens fed),
+  ``resumed``, and its phases, which run back to back from the span's
+  start in this order: ``inputs`` (the tokens to the device),
+  ``forward`` (the model's prefill enqueued), ``insert`` (its cache
+  into the batch cache), ``first`` (the first token read on the host,
+  where the host waits for the device; a resumed prefill has none).
+- ``decode``: one tenant's decode step; ``rids`` (the active rows'
+  request ids in slot order; each row's token time is the span's end),
+  ``rows``, ``ctx_sum`` (their summed lengths), and its phases, back to
+  back from the span's start: ``inputs`` (last tokens and positions to
+  the device), ``forward`` (the model's decode enqueued), ``wait`` (the
+  next tokens read on the host, where the host waits for the device),
+  ``finish`` (the per-row bookkeeping: finished requests retired and
+  reported to the monitor).
+- ``round``: one controller round; its detail is
+  :attr:`~repro_torch.core.types.RoundReport.phases`, where
+  ``classification``, ``eviction`` and ``actuation`` lie inside
+  ``scaling``.
+
+A phase's self time is its wall; a span's self time is its ``dur`` less
+its phases. The engine's instants carry the request's ``rid`` too:
+``serving_admit`` (``wait_s``, admission time less arrival on the
+engine's request clock) and ``serving_preempt`` (``generated``).
 """
 from __future__ import annotations
 
@@ -30,9 +62,13 @@ EVENT_KINDS = frozenset({
     # spans (exported as Chrome-trace "X" slices, not instants)
     "round",                # one controller round; detail: phase walls
     "chunk",                # one engine chunk;     detail: wall
+    "engine_step",          # one serving-engine step
+    "prefill",              # one request's prefill; detail: phase walls
+    "decode",               # one tenant's decode step; detail: phase walls
 })
 
-_SPAN_KINDS = frozenset({"round", "chunk"})
+_SPAN_KINDS = frozenset({"round", "chunk", "engine_step", "prefill",
+                         "decode"})
 
 
 @dataclass(slots=True)
@@ -40,7 +76,7 @@ class Event:
     """One flight-recorder entry (see module docstring for stamps)."""
 
     kind: str
-    t: float = 0.0            # virtual-clock seconds
+    t: float = 0.0            # seconds on the emitter's clock
     round: int = -1           # controller round index (-1: outside)
     node: str | None = None   # None: federation-level event
     tenant: str | None = None

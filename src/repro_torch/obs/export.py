@@ -6,14 +6,18 @@ Chrome-trace mapping (load at https://ui.perfetto.dev or
 - one *track* (pid/tid pair) per node, labelled via ``thread_name``
   metadata; federation-level events (``node is None``) land on a
   dedicated ``federation`` track;
-- ``round`` / ``chunk`` events become complete slices (``ph="X"``)
-  spanning their virtual-time window (the event's ``t`` stamps the
-  window *end*, ``detail["dur"]`` its length) with per-phase walls in
-  ``args``;
+- span kinds (``round``, ``chunk``, ``engine_step``, ``prefill``,
+  ``decode``) become complete slices (``ph="X"``) spanning their window
+  (the event's ``t`` stamps the window *end*, ``detail["dur"]`` its
+  length) with per-phase walls in ``args``; a serving engine's
+  ``engine_step`` slices contain its ``prefill``, ``decode`` and
+  ``round`` slices on its node's track;
 - every other kind becomes a thread-scoped instant (``ph="i"``).
 
-Timestamps are virtual-clock seconds converted to microseconds, so
-one trace second equals one simulated second.
+Timestamps are the emitters' clock in seconds converted to
+microseconds: virtual seconds for the simulators and the serving
+federation (one trace second is one simulated second), and
+``time.perf_counter`` seconds for the serving engine.
 """
 from __future__ import annotations
 

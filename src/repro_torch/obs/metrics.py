@@ -1,4 +1,4 @@
-"""Metrics registry: counters, gauges, histograms, percentile bands.
+"""Metrics registry: counters, histograms, percentile bands.
 
 :func:`percentile_bands` is the single p50/p95/p99 band computation —
 unified out of ``repro_torch.serving.federation`` (token-latency bands) so
@@ -38,19 +38,6 @@ class Counter:
         self.value += n
 
 
-class Gauge:
-    """Last-value-wins instantaneous measurement."""
-
-    __slots__ = ("name", "value")
-
-    def __init__(self, name: str):
-        self.name = name
-        self.value = 0.0
-
-    def set(self, v: float) -> None:
-        self.value = v
-
-
 class Histogram:
     """Raw-sample histogram summarised via :func:`percentile_bands`."""
 
@@ -81,13 +68,12 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Get-or-create registry of named counters/gauges/histograms."""
+    """Get-or-create registry of named counters and histograms."""
 
-    __slots__ = ("_counters", "_gauges", "_histograms")
+    __slots__ = ("_counters", "_histograms")
 
     def __init__(self):
         self._counters: dict[str, Counter] = {}
-        self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
@@ -95,12 +81,6 @@ class MetricsRegistry:
         if c is None:
             c = self._counters[name] = Counter(name)
         return c
-
-    def gauge(self, name: str) -> Gauge:
-        g = self._gauges.get(name)
-        if g is None:
-            g = self._gauges[name] = Gauge(name)
-        return g
 
     def histogram(self, name: str) -> Histogram:
         h = self._histograms.get(name)
@@ -113,8 +93,6 @@ class MetricsRegistry:
         return {
             "counters": {n: c.value
                          for n, c in sorted(self._counters.items())},
-            "gauges": {n: g.value
-                       for n, g in sorted(self._gauges.items())},
             "histograms": {n: h.bands()
                            for n, h in sorted(self._histograms.items())},
         }

@@ -1,10 +1,12 @@
 """The flight recorder: a bounded ring of typed events + metrics.
 
 One :class:`FlightRecorder` instance observes one run (one policy ×
-scaling-policy federation). It is shared by the federation, every
-node, and every controller; all of them hold it as an optional
-attribute that defaults to ``None`` — the tracing-off hot path is a
-single ``x is None`` predicate and allocates nothing.
+scaling-policy federation, or one serving engine). It is shared by the
+federation, every node, and every controller; all of them hold it as
+an optional attribute that defaults to ``None`` — the tracing-off hot
+path is a single ``x is None`` predicate and allocates nothing. A
+:class:`~repro_torch.serving.engine.MultiTenantEngine` takes one with
+``attach_recorder`` (and hands it to its controller).
 
 The recorder itself draws no RNG and never feeds back into control
 decisions; it only appends to a ``deque(maxlen=...)`` ring and bumps
@@ -21,12 +23,15 @@ DEFAULT_CAPACITY = 65536
 
 
 class FlightRecorder:
-    """Bounded event ring + metrics registry + virtual-clock cursor.
+    """Bounded event ring + metrics registry + clock cursor.
 
-    ``now`` is the current virtual-clock time, advanced by whichever
-    layer drives the clock (federation chunk loop / node run loop);
-    emitters that don't know the time inherit it (the controller emits
-    mid-round with only its round index).
+    An event's ``t`` is on its emitter's clock: the virtual clock for
+    the simulators and the serving federation, ``time.perf_counter``
+    for the serving engine. ``now`` is the cursor of that clock,
+    advanced by whichever layer drives it (federation chunk loop / node
+    run loop; the engine sets it as a round starts); emitters that don't
+    know the time inherit it (the controller emits mid-round with only
+    its round index).
     """
 
     __slots__ = ("events", "capacity", "dropped", "now", "metrics")
@@ -35,7 +40,7 @@ class FlightRecorder:
         self.capacity = int(capacity)
         self.events: deque[Event] = deque(maxlen=self.capacity)
         self.dropped = 0          # ring-evicted event count
-        self.now = 0.0            # virtual-clock cursor
+        self.now = 0.0            # the emitters' clock cursor
         self.metrics = MetricsRegistry()
 
     def __len__(self) -> int:

@@ -23,6 +23,25 @@ default, or a :class:`~repro_torch.serving.spec.VirtualClock` for
 deterministic simulation-grade runs (the serving federation's
 determinism contract).
 
+Tracing: an optional :class:`~repro_torch.obs.FlightRecorder`, given as
+``MultiTenantEngine(recorder=...)`` or by :meth:`attach_recorder`
+(which also hands it to the controller), receives an ``engine_step``
+span per step with the ``prefill``, ``decode`` and ``round`` spans
+inside it, each with its phase walls, and the instants
+``serving_admit`` and ``serving_preempt``, all keyed by the request's
+``rid`` (:mod:`repro_torch.obs.events` lists the phases). They are
+stamped with ``time.perf_counter``, the host clock a device trace is
+aligned to; the request clock above keeps stamping the requests. The
+phases read the host clock between statements that run either way, so
+tracing adds no synchronisation and changes no token or decision.
+With no recorder (the default) each emission site is one ``is None``
+test: no clock read, no allocation::
+
+    rec = FlightRecorder()
+    engine.attach_recorder(rec)
+    engine.run(100)
+    write_chrome_trace("trace.json", {"engine": rec.events_list()})
+
 Device: every tenant's weights and its caches (the dense and MoE
 families' (L, slot_cap, Smax, KH, hd) KV cache, the encoder-decoder's
 beside its cross KV, RWKV-6's per-layer states, the hybrid family's
@@ -53,6 +72,8 @@ from repro_torch.serving.request import Phase, Request, RequestState
 from repro_torch.serving.scheduler import QuotaScheduler
 
 CLOUD_LATENCY_S = 0.25       # WAN penalty for evicted/offloaded requests
+
+_now = time.perf_counter     # the spans' clock
 
 
 @dataclass
@@ -86,6 +107,13 @@ class _EngineActuator:
                 # otherwise _decode_step keeps generating for a request
                 # that is back in the waiting queue
                 victims = {id(r) for r in preempted}
+                rec = eng.recorder
+                if rec is not None:
+                    t = _now()
+                    for r in preempted:
+                        rec.emit("serving_preempt", t=t,
+                                 node=eng.ctrl.node_name, tenant=tenant,
+                                 rid=r.req.rid, generated=len(r.generated))
                 for i, r in enumerate(rt.slot_req):
                     if r is not None and id(r) in victims:
                         rt.slot_req[i] = None
@@ -125,7 +153,8 @@ class TenantRuntime:
 
 class MultiTenantEngine:
     def __init__(self, cfg: EngineConfig | None = None, seed: int = 0,
-                 clock: Callable[[], float] | None = None, device="cuda"):
+                 clock: Callable[[], float] | None = None, device="cuda",
+                 recorder=None):
         self.cfg = cfg or EngineConfig()
         self.device = check_device(device)
         self.clock = clock or time.perf_counter
@@ -151,6 +180,15 @@ class MultiTenantEngine:
         # True claims the requests (the federation migrates them)
         self.evict_hook: Callable[[str, list[RequestState]], bool] | None \
             = None
+        self.recorder = None
+        if recorder is not None:
+            self.attach_recorder(recorder)
+
+    def attach_recorder(self, recorder) -> None:
+        """Observe this engine and its controller with ``recorder`` (a
+        :class:`~repro_torch.obs.FlightRecorder`); ``None`` detaches."""
+        self.recorder = recorder
+        self.ctrl.recorder = recorder
 
     # ------------------------------------------------------------ lifecycle
     def add_tenant(self, spec: TenantSpec, model_cfg: ModelConfig) -> bool:
@@ -198,11 +236,15 @@ class MultiTenantEngine:
 
     # ------------------------------------------------------------ stepping
     def step(self) -> None:
+        rec = self.recorder
+        if rec is not None:
+            t0 = _now()
         for name in list(self.tenants):
             rt = self.tenants[name]
             # admit new requests within quota and prefill them (requests
             # inside a retry backoff window stay queued until not_before)
-            for rs in self.sched.admit_waiting(name, self.clock()):
+            now = self.clock()
+            for rs in self.sched.admit_waiting(name, now):
                 slot = rt.free_slot()
                 if slot < 0:
                     # shouldn't happen (slots quota ≤ slot_cap) but be safe
@@ -210,6 +252,10 @@ class MultiTenantEngine:
                     rs.phase = Phase.QUEUED
                     self.sched.tenants[name].waiting.appendleft(rs)
                     continue
+                if rec is not None:
+                    rec.emit("serving_admit", t=_now(),
+                             node=self.ctrl.node_name, tenant=name,
+                             rid=rs.req.rid, wait_s=now - rs.req.arrival_t)
                 self._prefill_into_slot(rt, rs, slot)
             # one decode step for all active slots
             if any(r is not None for r in rt.slot_req):
@@ -217,7 +263,28 @@ class MultiTenantEngine:
         self.steps += 1
         if self.cfg.policy != "none" and \
                 self.steps % self.cfg.round_interval_steps == 0:
-            self.ctrl.run_round()
+            if rec is None:
+                self.ctrl.run_round()
+            else:
+                self._traced_round(rec)
+        if rec is not None:
+            t1 = _now()
+            rec.emit("engine_step", t=t1, node=self.ctrl.node_name,
+                     dur=t1 - t0, step=self.steps - 1)
+
+    def _traced_round(self, rec) -> None:
+        """A DYVERSE round as a ``round`` span: its detail is the phase
+        walls the controller fills while a recorder observes it, and its
+        events (scale_up, ...) are stamped with the round's start."""
+        ri = self.ctrl.rounds_run
+        t0 = rec.now = _now()
+        report = self.ctrl.run_round()
+        t1 = _now()
+        phases = report.phases or {}
+        for k, v in phases.items():
+            rec.observe_phase(k, v)
+        rec.emit("round", t=t1, round=ri, node=self.ctrl.node_name,
+                 cause=self.cfg.policy, dur=t1 - t0, **phases)
 
     def _prefill_into_slot(self, rt: TenantRuntime, rs: RequestState,
                            slot: int) -> None:
@@ -232,16 +299,23 @@ class MultiTenantEngine:
             ctx = rs.req.prompt + rs.generated[:-1]
         else:
             ctx = rs.req.prompt
+        # phase boundaries of the prefill span (0.0 with no recorder)
+        on = self.recorder is not None
+        t0 = _now() if on else 0.0
         tokens = torch.tensor(ctx, dtype=torch.int64,
                               device=rt.device)[None, :]
+        t1 = _now() if on else 0.0
         logits, cache1 = rt._prefill(rt.params, prefill_batch(cfg, tokens))
+        t2 = _now() if on else 0.0
         rt.cache = _insert_cache(rt.cache, cache1, slot, cfg,
                                  self.cfg.max_seq_len)
+        t3 = _now() if on else 0.0
         if resumed:
             tok = rs.generated[-1]
         else:
             tok = int(torch.argmax(logits[0]))
             rs.generated.append(tok)
+        t4 = _now() if on else 0.0
         if rs.first_token_t is None:     # TTFT survives preemption
             rs.first_token_t = self.clock()
         rs.phase = Phase.DECODE
@@ -249,12 +323,30 @@ class MultiTenantEngine:
         rt.slot_req[slot] = rs
         rt.pos[slot] = len(ctx)
         rt.last_token[slot] = tok
+        if on:
+            t5 = _now()
+            first = {} if resumed else {"first": t4 - t3}
+            self.recorder.emit(
+                "prefill", t=t5, node=self.ctrl.node_name, tenant=rt.name,
+                dur=t5 - t0, rid=rs.req.rid, ctx=len(ctx), resumed=resumed,
+                inputs=t1 - t0, forward=t2 - t1, insert=t3 - t2, **first)
 
     def _decode_step(self, rt: TenantRuntime) -> None:
+        rec = self.recorder
+        on = rec is not None
+        if on:
+            rows = [i for i, r in enumerate(rt.slot_req) if r is not None]
+            rids = [rt.slot_req[i].req.rid for i in rows]
+            ctx_sum = int(rt.pos[rows].sum()) + len(rows)
+        # phase boundaries of the decode span (0.0 with no recorder)
+        t0 = _now() if on else 0.0
         token = torch.tensor(rt.last_token, device=rt.device)
         pos = torch.tensor(rt.pos, device=rt.device)
+        t1 = _now() if on else 0.0
         logits, rt.cache = rt._decode(rt.params, rt.cache, token, pos)
+        t2 = _now() if on else 0.0
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        t3 = _now() if on else 0.0
         t_done = self.clock()
         for slot, rs in enumerate(rt.slot_req):
             if rs is None:
@@ -273,6 +365,12 @@ class MultiTenantEngine:
                         data_mb=len(rs.generated) * 4e-6, user=rs.req.user)
                 rt.slot_req[slot] = None
                 self.completed.append(rs)
+        if on:
+            t4 = _now()
+            rec.emit("decode", t=t4, node=self.ctrl.node_name,
+                     tenant=rt.name, dur=t4 - t0, rids=rids, rows=len(rows),
+                     ctx_sum=ctx_sum, inputs=t1 - t0, forward=t2 - t1,
+                     wait=t3 - t2, finish=t4 - t3)
 
     def run(self, steps: int) -> None:
         for _ in range(steps):
