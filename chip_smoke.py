@@ -1266,7 +1266,9 @@ def serving_engine(fleet, archs, kernels) -> tuple:
         rt = eng.tenants[name]
         walls[name] = ([], [])
         rt._prefill = _timed(rt._prefill, walls[name][0])
-        rt._decode = _timed(rt._decode, walls[name][1])
+        # a whole decode step, eager, captured or replayed (a capture
+        # admits no synchronisation inside the model's decode)
+        rt.forward = _timed(rt.forward, walls[name][1])
     rng = np.random.default_rng(5)
     prompts = {name: [[int(x) for x in rng.integers(1, cfg.vocab_size,
                                                     SERVE_PROMPT)]
@@ -1934,12 +1936,18 @@ def _capture_attention(seen: dict):
     layout, dtype and mask, and for K5 also of the call over the most
     tokens; every call still runs the kernel. Returns the function that
     puts the wrappers back."""
+    import torch
+
     from repro_torch.kernels import attention as att
 
     orig = {"flash": att.flash_attention, "paged": att.paged_attention}
 
     def wrap(kind):
         def run(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                # a decode step captured as a graph: its inputs hold no
+                # values yet (the tenant's eager first step was kept)
+                return orig[kind](*args, **kw)
             key = (kind, tuple((tuple(a.shape), a.stride(), a.dtype)
                                for a in args), tuple(sorted(kw.items())))
             calls = seen.setdefault(key, [])

@@ -25,12 +25,16 @@ seconds. The serving engine's spans:
   where the host waits for the device; a resumed prefill has none).
 - ``decode``: one tenant's decode step; ``rids`` (the active rows'
   request ids in slot order; each row's token time is the span's end),
-  ``rows``, ``ctx_sum`` (their summed lengths), and its phases, back to
-  back from the span's start: ``inputs`` (last tokens and positions to
-  the device), ``forward`` (the model's decode enqueued), ``wait`` (the
-  next tokens read on the host, where the host waits for the device),
-  ``finish`` (the per-row bookkeeping: finished requests retired and
-  reported to the monitor).
+  ``rows``, ``ctx_sum`` (their summed lengths), ``graph`` (1 where the
+  step replayed its captured CUDA graph, 0 where it ran eagerly), and
+  its phases, back to back from the span's start: ``inputs`` (last
+  tokens and positions copied to the step's static device buffers),
+  ``forward`` (the model's decode enqueued: eagerly, kernel by kernel,
+  or under replay the one graph launch, and a capture where one
+  happens), ``wait`` (the next tokens read on the host, where the host
+  waits for the device: under replay, the device running the whole
+  step), ``finish`` (the per-row bookkeeping: finished requests
+  retired and reported to the monitor).
 - ``round``: one controller round; its detail is
   :attr:`~repro_torch.core.types.RoundReport.phases`, where
   ``classification``, ``eviction`` and ``actuation`` lie inside
@@ -40,6 +44,9 @@ A phase's self time is its wall; a span's self time is its ``dur`` less
 its phases. The engine's instants carry the request's ``rid`` too:
 ``serving_admit`` (``wait_s``, admission time less arrival on the
 engine's request clock) and ``serving_preempt`` (``generated``).
+``decode_capture`` is a tenant's decode step captured as a CUDA graph,
+stamped at the end of the ``forward`` phase that holds it: ``wall``
+(seconds the capture took) and ``captures`` (the tenant's count).
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ EVENT_KINDS = frozenset({
     "engine_step",          # one serving-engine step
     "prefill",              # one request's prefill; detail: phase walls
     "decode",               # one tenant's decode step; detail: phase walls
+    "decode_capture",       # a tenant's decode step captured; detail: wall
 })
 
 _SPAN_KINDS = frozenset({"round", "chunk", "engine_step", "prefill",

@@ -51,6 +51,27 @@ On the card, attention prefill runs through the flash kernel K4 and
 decode through the paged kernel K5
 (:mod:`repro_torch.kernels.attention`), the RWKV-6 recurrence through
 K6 and the SSD scan through K7; the caches are updated in place.
+
+Decode as one CUDA graph: a tenant's decode step runs every one of its
+``slot_cap`` rows from two static device buffers, the rows' last
+tokens and positions, which each step fills with one copy from the
+host's (:meth:`TenantRuntime.stage`), to a static buffer of next tokens
+(the ``argmax`` is inside the step). On a card, over plain-tensor
+caches (:func:`_capturable`), the tenant's first decode step runs
+eagerly (so the kernels are built and the cuBLAS handles and K5's split
+counters exist outside a capture), its second captures the whole step
+(embedding, every layer with its in-place cache write and K5, the final
+norm, the logits, the ``argmax``) as one ``torch.cuda.CUDAGraph`` in a
+private memory pool, and every step from then on replays it: the same
+kernels on the same buffers, without the host's dispatch of each. The
+graph reads the caches and weights where they lie, which prefills and
+handed-in weights write in place; should a cache's storage or the
+weights' module be replaced, the graph is dropped and captured anew.
+The CPU, and a mesh's DTensor caches, run the same step eagerly.
+``TenantRuntime`` counts ``eager_steps``, ``graph_steps`` (replays),
+``captures`` and their summed wall ``capture_s``; ``fleet.LAUNCHES``
+adds a graph's kernel launches at each replay, so it counts kernels
+run.
 """
 from __future__ import annotations
 
@@ -65,9 +86,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (DyverseController, NodeCapacity, Quota,
                               ResourceUnit, TenantSpec)
+from repro_torch.kernels import attention as kern
+from repro_torch.kernels import fleet
 from repro_torch.kernels.fleet import check_device
 from repro_torch.models import build_model
 from repro_torch.models.kvcache import cache_specs
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.serving.request import Phase, Request, RequestState
 from repro_torch.serving.scheduler import QuotaScheduler
 
@@ -138,17 +162,112 @@ class TenantRuntime:
         specs = self.model.cache_specs(B, S)
         self.cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
                       for k, s in specs.items()}
-        self.pos = np.zeros(B, np.int64)           # next write index per slot
+        # each row's last token and next write index, kept by the host
+        # (``last_token`` and ``pos`` are numpy views of the staging
+        # tensor, pinned on a card so that the step's copy is one DMA),
+        # and their static device copy, which the decode step reads
+        self._staged = torch.zeros((2, B), dtype=torch.int64,
+                                   pin_memory=device.type == "cuda")
+        self.last_token, self.pos = self._staged.numpy()
+        self._inputs = torch.zeros((2, B), dtype=torch.int64, device=device)
         self.slot_req: list[RequestState | None] = [None] * B
         self._decode = self.model.decode_fn
         self._prefill = self.model.prefill_fn
-        self.last_token = np.zeros(B, np.int64)
+        self.graph: _DecodeGraph | None = None   # the captured step
+        self._may_capture = True         # tests force the eager path
+        self.eager_steps = 0
+        self.graph_steps = 0
+        self.captures = 0
+        self.capture_s = 0.0
 
     def free_slot(self) -> int:
         for i, r in enumerate(self.slot_req):
             if r is None:
                 return i
         return -1
+
+    def stage(self) -> None:
+        """Copy the host's last tokens and positions into the step's
+        static inputs."""
+        self._inputs.copy_(self._staged, non_blocking=True)
+
+    def _run(self) -> torch.Tensor:
+        """The decode step on the static inputs, eager or under capture:
+        every row's next token, (B,) int64 on the device."""
+        token, pos = self._inputs
+        logits, self.cache = self._decode(self.params, self.cache, token, pos)
+        return torch.argmax(logits, dim=-1)
+
+    def _key(self) -> tuple:
+        """What a captured graph reads by address: the weights' module
+        and the caches' storage."""
+        return (id(self.params),) + tuple(
+            t.data_ptr() for t in self.cache.values())
+
+    def forward(self) -> tuple[torch.Tensor, float | None]:
+        """Run the decode step on the staged inputs: replay its graph,
+        or run it eagerly, or capture it and replay (the wall of a
+        capture is returned beside the next tokens, else None)."""
+        g = self.graph
+        if g is not None and g.key != self._key():
+            g = self.graph = None
+        wall = None
+        if (g is None and self.eager_steps and self._may_capture
+                and _capturable(self.device, self.cache)):
+            t0 = time.perf_counter()
+            g = self.graph = _DecodeGraph.capture(self)
+            wall = time.perf_counter() - t0
+            self.captures += 1
+            self.capture_s += wall
+        if g is None:
+            self.eager_steps += 1
+            return self._run(), None
+        self.graph_steps += 1
+        return g.replay(), wall
+
+
+def _capturable(device: torch.device, cache: dict) -> bool:
+    """Whether a tenant's decode step may be captured: on a card, over
+    plain-tensor caches (a mesh's DTensor caches redistribute and reduce
+    through collectives, which stay eager)."""
+    return device.type == "cuda" and not any(
+        is_dtensor(t) for t in cache.values())
+
+
+def _capture(fn) -> tuple:
+    """``fn()``'s kernels captured as a CUDA graph in its own private
+    memory pool, and ``fn``'s output, which each replay rewrites."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@dataclass
+class _DecodeGraph:
+    """A tenant's captured decode step."""
+    graph: object
+    out: torch.Tensor                  # the next tokens, rewritten by replay
+    key: tuple                         # TenantRuntime._key() at capture
+    launches: dict                     # fleet.LAUNCHES added per replay
+    keep: tuple                        # K5's split counters it writes
+
+    @classmethod
+    def capture(cls, rt: TenantRuntime) -> "_DecodeGraph":
+        before = dict(fleet.LAUNCHES)
+        graph, out = _capture(rt._run)
+        launches = {k: n - before[k] for k, n in fleet.LAUNCHES.items()
+                    if n != before[k]}
+        fleet.LAUNCHES.update(before)    # captured, not run
+        # the counters stay alive with the graph that holds their address
+        return cls(graph, out, rt._key(), launches,
+                   tuple(kern._COUNTERS.values()))
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            fleet.LAUNCHES[k] += n
+        return self.out
 
 
 class MultiTenantEngine:
@@ -340,12 +459,11 @@ class MultiTenantEngine:
             ctx_sum = int(rt.pos[rows].sum()) + len(rows)
         # phase boundaries of the decode span (0.0 with no recorder)
         t0 = _now() if on else 0.0
-        token = torch.tensor(rt.last_token, device=rt.device)
-        pos = torch.tensor(rt.pos, device=rt.device)
+        rt.stage()
         t1 = _now() if on else 0.0
-        logits, rt.cache = rt._decode(rt.params, rt.cache, token, pos)
+        nxt, capture_s = rt.forward()
         t2 = _now() if on else 0.0
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = nxt.cpu().numpy()
         t3 = _now() if on else 0.0
         t_done = self.clock()
         for slot, rs in enumerate(rt.slot_req):
@@ -367,10 +485,15 @@ class MultiTenantEngine:
                 self.completed.append(rs)
         if on:
             t4 = _now()
+            if capture_s is not None:
+                rec.emit("decode_capture", t=t2, node=self.ctrl.node_name,
+                         tenant=rt.name, wall=capture_s,
+                         captures=rt.captures)
             rec.emit("decode", t=t4, node=self.ctrl.node_name,
                      tenant=rt.name, dur=t4 - t0, rids=rids, rows=len(rows),
-                     ctx_sum=ctx_sum, inputs=t1 - t0, forward=t2 - t1,
-                     wait=t3 - t2, finish=t4 - t3)
+                     ctx_sum=ctx_sum, graph=int(rt.graph is not None),
+                     inputs=t1 - t0, forward=t2 - t1, wait=t3 - t2,
+                     finish=t4 - t3)
 
     def run(self, steps: int) -> None:
         for _ in range(steps):
