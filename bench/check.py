@@ -3,8 +3,9 @@
 After the window closes and the program's state is freed, a sample of
 the requests the engine finished, drawn from the seed with the longest
 one and up to two that were resumed after a preemption in it, is run
-through the plain float32 reference once each: the prompt with its
-served tokens, teacher-forced. Every served token is greedy, so its
+through the plain float32 reference of the configuration's architecture
+(``logits_at`` of ``bench/reference/<arch>.py``) once each: the prompt
+with its served tokens, teacher-forced. Every served token is greedy, so its
 logit should be the reference's best at its position; the number
 compared is the widest gap by which a served token's logit lies below
 the reference's best, over the sample. The first served token comes
@@ -24,11 +25,14 @@ move sets ``check.min_resumed`` (1 or 2), and a run that checked fewer
 resumed requests is not correct."""
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from bench.reference import model as ref
+from bench import modules
 from bench.reference import weights as bw
+from bench.reference.model import fp8_mm
 
 
 def draw_sample(done: list[dict], rng: np.random.Generator,
@@ -51,11 +55,11 @@ def draw_sample(done: list[dict], rng: np.random.Generator,
     return pick
 
 
-def gaps(cfg: dict, w: dict, prompt: list[int], served: list[int], device,
-         control: bool = False):
-    """Per served token, the gap of its logit below the reference's best
-    (and, with ``control``, the gap of the token the control ranks
-    first), as float32 tensors on the host."""
+def gaps(ref, cfg: dict, w: dict, prompt: list[int], served: list[int],
+         device, control: bool = False):
+    """Per served token, the gap of its logit below the best of the
+    reference ``ref`` (and, with ``control``, the gap of the token the
+    control ranks first), as float32 tensors on the host."""
     toks = torch.tensor(prompt + served[:-1], dtype=torch.int64,
                         device=device)
     p, g = len(prompt), len(served)
@@ -66,7 +70,7 @@ def gaps(cfg: dict, w: dict, prompt: list[int], served: list[int], device,
     gap = (best - logits.gather(1, tok[:, None])[:, 0]).cpu()
     if not control:
         return gap, None
-    first = ref.logits_at(cfg, w, toks, at, mm=ref.fp8_mm).argmax(-1)
+    first = ref.logits_at(cfg, w, toks, at, mm=fp8_mm).argmax(-1)
     return gap, (best - logits.gather(1, first[:, None])[:, 0]).cpu()
 
 
@@ -78,10 +82,12 @@ def summary(g: torch.Tensor) -> dict:
 
 
 def compare(cfg: dict, sample: list[dict], seeds: list[int], device,
-            control: bool = False) -> dict:
-    """The sample's gaps, one tenant's weights made at a time. Returns
-    ``program`` (and ``control``) :func:`summary`, the requests, the
-    served tokens and the resumed requests checked."""
+            control: bool = False, root: Path | None = None) -> dict:
+    """The sample's gaps, one tenant's weights made at a time, against
+    the reference of ``cfg``'s architecture in the checkout ``root``.
+    Returns ``program`` (and ``control``) :func:`summary`, the requests,
+    the served tokens and the resumed requests checked."""
+    ref = modules.reference(cfg, root)
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -89,9 +95,9 @@ def compare(cfg: dict, sample: list[dict], seeds: list[int], device,
     got, ctrl = [], []
     try:
         for tenant in sorted({r["tenant"] for r in sample}):
-            w = bw.make(cfg, seeds[tenant], device)
+            w = bw.make(cfg, seeds[tenant], device, root)
             for r in (r for r in sample if r["tenant"] == tenant):
-                gap, c = gaps(cfg, w, r["tokens"], r["served"], device,
+                gap, c = gaps(ref, cfg, w, r["tokens"], r["served"], device,
                               control)
                 got.append(gap)
                 if control:

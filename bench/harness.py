@@ -6,12 +6,15 @@ has passed, then ``engine.step()``, which runs the tenants' prefills and
 decode steps and, every ``round_interval_steps`` steps, a DYVERSE round.
 Spans around the engine's prefill, decode and round calls are taken by
 wrapping those calls on the engine object; nothing inside the program
-changes."""
+changes. A traced run also hands the program's own events to the
+readers: a ``repro_torch.obs.FlightRecorder`` attached to the engine for
+the loop. The configuration's architecture (its ``"arch"``) is two
+modules, :mod:`bench.modules`: the program's side, ``bench/arch/``, and
+the weight layout and reference, ``bench/reference/``."""
 from __future__ import annotations
 
 import bisect
 import gc
-import importlib.util
 import json
 import sys
 import time
@@ -20,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bench import check, stats, traffic
+from bench import check, modules, stats, traffic
 from bench.record import Record
 from bench.reference import weights as bw
 
@@ -30,6 +33,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: share of the window, at its end, that a traced run traces; the host
 #: spans' metrics read the part before it, free of the profiler's cost
 TRACED_SHARE = 1 / 3
+
+#: events the program's recorder holds: a traced run of either cell emits
+#: 4,137 to 5,766 (H100), so 2^18 holds some 45 times that, and room for
+#: busier cells; a reader reads none where any drop
+EVENT_CAPACITY = 1 << 18
 
 
 def load_spec(root: Path, cell: str) -> tuple[dict, dict, dict, dict]:
@@ -41,45 +49,6 @@ def load_spec(root: Path, cell: str) -> tuple[dict, dict, dict, dict]:
     conf = next(c for c in spec["configs"] if c["name"] == entry["config"])
     cfg = json.loads((root / conf["file"]).read_text())
     return spec, entry, cfg, traffic.load(root, entry["traffic"])
-
-
-def model_config(cfg: dict):
-    """The program's ``ModelConfig`` of a configuration file."""
-    from repro_torch.configs.base import ModelConfig
-    moe = bool(cfg.get("num_experts", 0))
-    return ModelConfig(
-        name=cfg["name"], family="moe" if moe else "dense",
-        num_layers=cfg["num_hidden_layers"], d_model=cfg["hidden_size"],
-        d_ff=cfg["intermediate_size"], vocab_size=cfg["vocab_size"],
-        num_heads=cfg["num_attention_heads"],
-        num_kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-        rope_theta=cfg["rope_theta"],
-        num_experts=cfg.get("num_experts", 0),
-        experts_per_token=cfg.get("num_experts_per_tok", 0),
-        tie_embeddings=cfg["tie_word_embeddings"],
-        vocab_pad_to=cfg["vocab_pad_to"], dtype=cfg["torch_dtype"])
-
-
-def hand_in(params, w: dict, cfg: dict) -> None:
-    """Copy the benchmark's weights into the program's, leaf by leaf."""
-    def put(dst, src):
-        if tuple(dst.shape) != tuple(src.shape):
-            raise ValueError(f"weight of {tuple(dst.shape)} given "
-                             f"{tuple(src.shape)}")
-        dst.data.copy_(src)
-    put(params.tok.embed, w["embed"])
-    if not cfg["tie_word_embeddings"]:
-        put(params.tok.unembed, w["unembed"])
-    put(params.ln_f.scale, w["ln_f"])
-    moe = bool(cfg.get("num_experts", 0))
-    for i, blk in enumerate(params.layers):
-        put(blk.ln1.scale, w["ln1"][i])
-        put(blk.ln2.scale, w["ln2"][i])
-        for n in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.attn, n), w[n][i])
-        ffn = blk.moe if moe else blk.mlp
-        for n in (("router",) if moe else ()) + ("w_gate", "w_up", "w_down"):
-            put(getattr(ffn, n), w[n][i])
 
 
 def _seeds(seed: int, tenants: int) -> tuple:
@@ -150,11 +119,7 @@ def _warm(eng, t: dict, names: list[str], vocab: int) -> None:
 def load_metric(root: Path, name: str):
     """The reader of per-layer metric ``name``: ``bench/metrics/<name>.py``."""
     path = root / "bench" / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"bench.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return modules.load(path, f"bench.metrics.{name}").read
 
 
 def forbidden_modules() -> list[str]:
@@ -164,7 +129,8 @@ def forbidden_modules() -> list[str]:
 
 class Setup:
     """A cell's engine with its tenants admitted, the benchmark's weights
-    handed in and the cell's shapes warmed."""
+    handed in and the cell's shapes warmed; ``arch``, the program's side
+    of the configuration's architecture."""
 
     def __init__(self, root: Path, cell: str, seed: int, *, device: str,
                  cfg_over: dict | None = None,
@@ -176,7 +142,8 @@ class Setup:
         self.cfg = {**cfg, **(cfg_over or {})}
         self.t = {**t, **(traffic_over or {})}
         self.cell, self.device = cell, device
-        mcfg = model_config(self.cfg)
+        self.arch = modules.program(self.cfg, root)
+        mcfg = self.arch.program_config(self.cfg)
         self.names = [x["name"] for x in self.t["tenants"]]
         self.traffic_ss, self.wseeds, self.sample_rng = _seeds(
             seed, len(self.names))
@@ -189,8 +156,9 @@ class Setup:
                 min_units=x["min_units"]), mcfg)
             if not ok:
                 raise RuntimeError(f"tenant {x['name']} not admitted")
-            w = bw.make(self.cfg, ws, device)
-            hand_in(self.eng.tenants[x["name"]].params, w, self.cfg)
+            w = bw.make(self.cfg, ws, device, root)
+            self.arch.hand_in(self.eng.tenants[x["name"]].params, w,
+                              self.cfg)
             del w
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -198,20 +166,27 @@ class Setup:
 
 
 def open_loop(s: Setup, reqs: list[dict], seconds: float, tracer=None,
-              clock=time.perf_counter) -> Record:
+              clock=time.perf_counter, events: bool = False) -> Record:
     """Offer ``reqs`` (due times from the window's open) from now on:
     the warm-up, the window of ``seconds``, then the drain, which ends
     when every request due in the window has finished or at the drain's
     limit. The tracer, if any, runs from the start of the window's traced
-    part (its last :data:`TRACED_SHARE`) to the end."""
+    part (its last :data:`TRACED_SHARE`) to the end. With ``events``, a
+    flight recorder observes the engine for the loop, and the record
+    gets its events."""
     eng, t = s.eng, s.t
     t0 = clock()
     w0 = t0 + t["warmup_s"]
     w1 = w0 + seconds
     ts = w1 - seconds * TRACED_SHARE
     limit = w1 + t["drain_limit_s"]
-    rec = Record(s.cell, s.cfg, (w0, w1), 0.0, [])
+    rec = Record(s.cell, s.cfg, (w0, w1), 0.0, [], arch=s.arch)
     resumed: dict[int, int] = {}
+    obs = None
+    if events:
+        from repro_torch.obs import FlightRecorder
+        obs = FlightRecorder(EVENT_CAPACITY)
+        eng.attach_recorder(obs)
     _wrap(eng, rec, clock, resumed)
     window = [r for r in reqs if 0 <= r["due"] < seconds]
     nxt, n = 0, len(reqs)
@@ -239,6 +214,9 @@ def open_loop(s: Setup, reqs: list[dict], seconds: float, tracer=None,
         rec.steps.append((a, clock()))
     rec.t_stop = clock()
     _unwrap(eng)
+    if obs is not None:
+        eng.attach_recorder(None)
+        rec.events, rec.events_dropped = obs.events_list(), obs.dropped
     slo = [x["slo_s"] for x in t["tenants"]]
     for r in reqs:
         rs = r.get("rs")
@@ -276,7 +254,7 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool, *,
     if fault is not None:
         fault(s.eng)
     setup_s = clock() - t_start
-    rec = open_loop(s, reqs, seconds, tracer, clock)
+    rec = open_loop(s, reqs, seconds, tracer, clock, events=trace)
     t_loop = clock()
     w0, w1 = rec.window
     e2e, counts = stats.end_to_end(
@@ -331,7 +309,8 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool, *,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    cmp = check.compare(cfg, sample, wseeds, device, control=control)
+    cmp = check.compare(cfg, sample, wseeds, device, control=control,
+                        root=root)
     t_ref = clock()
     if log is not None:
         log(f"[time] setup {setup_s:.1f} s, loop {t_loop - t_start - setup_s:.1f}"
@@ -358,6 +337,9 @@ def run(root: Path, cell: str, seed: int, seconds: float, trace: bool, *,
     out["samples"] = {**counts, "checked_requests": cmp["requests"],
                       "checked_resumed": cmp["resumed"],
                       "quota_slots_min": rec.quota_min(),
+                      **({"events": len(rec.events),
+                          "events_dropped": rec.events_dropped}
+                         if rec.events is not None else {}),
                       "gaps": cmp["program"],
                       "more": {k: v for k, v in e2e.items()
                                if k not in metrics}}

@@ -1,6 +1,7 @@
 """Kernels: K4's roofline share over the traced window, as a percentage:
 the work counted from each prefill's length, over the device time of the
-K4 kernels that those prefills launched."""
+K4 kernels that those prefills launched; K4 runs in the layers that the
+architecture's ``attention_layers`` counts."""
 from bench.counts.attention import flash_prefill
 from bench.counts.peaks import roofline_s
 
@@ -13,7 +14,8 @@ def read(rec):
     device = tr.device_in(pre, lambda k: "flash_" in k.name)
     if not device:
         return None
-    bound = sum(cfg["num_hidden_layers"] * roofline_s(*flash_prefill(
+    L = rec.arch.attention_layers(cfg)
+    bound = sum(L * roofline_s(*flash_prefill(
         p[4], cfg["num_attention_heads"], cfg["num_key_value_heads"],
         cfg["head_dim"])) for p in pre)
     return 100.0 * bound / device

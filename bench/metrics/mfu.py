@@ -1,7 +1,7 @@
 """Device: model FLOPs the traced window's steps needed (prefills at
-their lengths, decode rows at theirs, active experts only) over the
-summed ``engine.step()`` wall at the bf16 peak, as a percentage."""
-from bench.counts.model import decode_flops, prefill_flops
+their lengths, decode rows at theirs, active experts only: the
+architecture's ``prefill_flops`` and ``decode_flops``) over the summed
+``engine.step()`` wall at the bf16 peak, as a percentage."""
 from bench.counts.peaks import BF16_FLOPS_PER_S
 
 
@@ -14,8 +14,9 @@ def read(rec):
     if not wall:
         return None
     lo, hi = steps[0][0], steps[-1][1]
-    flops = sum(prefill_flops(rec.cfg, p[4]) for p in rec.prefills
+    arch = rec.arch
+    flops = sum(arch.prefill_flops(rec.cfg, p[4]) for p in rec.prefills
                 if lo <= p[0] < hi)
-    flops += sum(decode_flops(rec.cfg, d[3]) for d in rec.decodes
+    flops += sum(arch.decode_flops(rec.cfg, d[3]) for d in rec.decodes
                  if lo <= d[0] < hi)
     return 100.0 * flops / (wall * BF16_FLOPS_PER_S)

@@ -1,7 +1,8 @@
 """Kernels: K5's roofline share over the traced window, as a percentage:
 the bytes counted from each decode step's actual lengths (its active
 rows), over the device time of the K5 kernels that those steps
-launched."""
+launched; K5 runs in the layers that the architecture's
+``attention_layers`` counts."""
 from bench.counts.attention import paged_decode
 from bench.counts.peaks import roofline_s
 
@@ -14,7 +15,8 @@ def read(rec):
     device = tr.device_in(dec, lambda k: "paged_" in k.name)
     if not device:
         return None
-    bound = sum(cfg["num_hidden_layers"] * roofline_s(*paged_decode(
+    L = rec.arch.attention_layers(cfg)
+    bound = sum(L * roofline_s(*paged_decode(
         d[3], cfg["num_attention_heads"], cfg["num_key_value_heads"],
         cfg["head_dim"])) for d in dec)
     return 100.0 * bound / device

@@ -10,6 +10,14 @@ DENSE = {"num_hidden_layers": 2, "hidden_size": 512,
          "num_key_value_heads": 2, "head_dim": 32, "vocab_size": 500}
 MOE = {**DENSE, "num_key_value_heads": 4, "num_experts": 8,
        "num_experts_per_tok": 2}
+#: the hybrid fixture (``fixtures/hybrid``): two groups of one shared
+#: attention block and two Mamba-2 layers of 16 heads of 16, state 16
+HYBRID = {**DENSE, "num_hidden_layers": 4, "attn_every": 2,
+          "hidden_size": 128, "mamba_d_state": 16, "mamba_headdim": 16,
+          "mamba_expand": 2}
+#: the files a later change adds for a new architecture (the hybrid
+#: family), laid out as in a checkout: ``<FIXTURE>/bench/...``
+FIXTURE = ROOT / "bench" / "tests" / "fixtures" / "hybrid"
 TRAFFIC = {
     "rate_per_s": 4.0, "warmup_s": 1.0, "drain_limit_s": 5.0,
     "prompt": {"median": 48, "sigma": 0.5, "min": 16, "max": 96},

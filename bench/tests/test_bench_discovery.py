@@ -1,12 +1,15 @@
-"""A later change adds a configuration, a traffic mix and a per-layer
-metric as new files and new entries, and the harness finds each by its
+"""A later change adds a configuration, a traffic mix, a per-layer
+metric, or a whole architecture with a reader of the program's own
+events, as new files and new entries, and the harness finds each by its
 name; no file the benchmark has is edited."""
 import json
 import shutil
 
-from bench import harness, traffic
+import pytest
+
+from bench import harness, modules, traffic
 from bench.record import Record
-from bench.tests.small import ROOT, run
+from bench.tests.small import FIXTURE, HYBRID, ROOT, TRAFFIC, run
 
 
 def _copy(tmp_path):
@@ -58,3 +61,61 @@ def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     assert out["correct"] and out["attempted"] == round(4.0 * 3.0)
     after = _digest(root)
     assert all(after[p] == b for p, b in before.items())
+
+
+def test_new_architecture_and_event_reader_are_found_by_name(tmp_path):
+    """The hybrid family (Mamba-2 layers, one shared attention block every
+    ``attn_every``): its program module, plain reference and counts, a
+    configuration, a traffic mix, and a reader of the program's decode
+    spans, copied in from ``fixtures/hybrid`` as new files."""
+    import torch
+    root = _copy(tmp_path)
+    before = _digest(root)
+    added = [p.relative_to(FIXTURE) for p in sorted(FIXTURE.rglob("*"))
+             if p.is_file() and "__pycache__" not in p.parts]
+    for rel in added:
+        assert not (root / rel).exists(), rel
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(FIXTURE / rel, root / rel)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "zamba2-2.7b",
+                            "source": "https://huggingface.co/Zyphra/Zamba2-2.7B",
+                            "file": "bench/configs/zamba2-2.7b.json",
+                            "reduced": [], "why": "a test configuration"})
+    spec["workloads"].append({"name": "zamba2.chat", "config": "zamba2-2.7b",
+                              "traffic": "zamba2.chat", "chips": 1,
+                              "why": "a test cell"})
+    spec["per_layer"].append({"name": "eager_decode_steps", "unit": "steps",
+                              "better": "lower", "source": "program_span",
+                              "layer": "engine", "moves": "tpot_p50_ms"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    _, _, cfg, _ = harness.load_spec(root, "zamba2.chat")
+    arch = modules.program(cfg, root)
+    for c in (cfg, {**cfg, **HYBRID}):
+        assert arch.attention_layers(c) == \
+            c["num_hidden_layers"] / c["attn_every"] < c["num_hidden_layers"]
+    out = run("zamba2.chat", 4, cfg=HYBRID, root=root)
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0 and out["attempted"] == round(4.0 * 3.0)
+
+    # the reader, on a record that carries the program's events
+    torch.set_num_threads(2)
+    s = harness.Setup(root, "zamba2.chat", 5, device="cpu", cfg_over=HYBRID,
+                      traffic_over=TRAFFIC)
+    reqs = traffic.generate(s.t, 3.0, s.traffic_ss, s.cfg["vocab_size"])
+    rec = harness.open_loop(s, reqs, 3.0, events=True)
+    read = harness.load_metric(root, "eager_decode_steps")
+    assert read(rec) == len(rec.untraced(rec.decodes)) > 0
+    after = _digest(root)
+    assert all(after[p] == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("arch,said", [(None, 'no "arch" key'),
+                                       ("mamba", '"arch" \'mamba\' names no'),
+                                       ("../metrics/mfu", "names no")])
+def test_a_configuration_without_its_architecture_stops_the_run(arch, said):
+    cfg = {"name": "x"} if arch is None else {"name": "x", "arch": arch}
+    for load in (modules.program, modules.reference):
+        with pytest.raises(SystemExit, match=said):
+            load(cfg)

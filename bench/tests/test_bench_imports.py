@@ -1,12 +1,12 @@
 """Nothing the benchmark loads is JAX or the JAX package (top-level names
-compared whole: ``repro_torch`` begins with ``repro``), the reference
-loads nothing of the program, and nothing comes from the old
-``benchmarks/`` folder."""
+compared whole: ``repro_torch`` begins with ``repro``), no reference
+(every ``bench/reference/*.py``, the hybrid fixture's too) loads anything
+of the program, and nothing comes from the old ``benchmarks/`` folder."""
 import json
 import subprocess
 import sys
 
-from bench.tests.small import ROOT
+from bench.tests.small import FIXTURE, ROOT
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -33,8 +33,13 @@ def _loaded(mods, extra=""):
 def test_harness_and_metrics_load_no_jax_nor_the_jax_package():
     metrics = sorted(p.stem for p in (ROOT / "bench/metrics").glob("*.py")
                      if p.stem != "__init__")
-    extra = ("from bench import harness\n"
+    archs = sorted(p.stem for p in (ROOT / "bench/arch").glob("*.py")
+                   if p.stem != "__init__")
+    extra = ("from bench import harness, modules\n"
              f"for m in {metrics!r}: harness.load_metric(Path({str(ROOT)!r}), m)\n"
+             f"for a in {archs!r}:\n"
+             "    modules.program({'arch': a}).program_config\n"
+             "    modules.reference({'arch': a}).logits_at\n"
              "import runpy\n"
              f"runpy.run_path({str(ROOT / 'bench/run.py')!r}, run_name='probe')\n"
              "from bench import harness\n"
@@ -51,9 +56,17 @@ def test_harness_and_metrics_load_no_jax_nor_the_jax_package():
 
 
 def test_reference_loads_nothing_of_the_program():
-    got = _loaded(["bench.reference.model", "bench.reference.weights"])
+    refs = sorted(p for p in [*(ROOT / "bench/reference").glob("*.py"),
+                              *(FIXTURE / "bench/reference").glob("*.py")])
+    assert len(refs) >= 5
+    extra = ("from bench import modules\n"
+             f"for i, p in enumerate({[str(p) for p in refs]!r}):\n"
+             "    modules.load(Path(p), f'probe_ref{i}')\n")
+    got = _loaded(["bench.reference.weights"], extra)
     tops = {m.split(".")[0] for m in got["mods"]}
     assert not tops & {"repro_torch", *FORBIDDEN}
+    assert {"bench.reference.model", "bench.reference.weights"} <= \
+        set(got["mods"])
 
 
 def test_harness_refuses_a_forbidden_module_loaded_by_then():

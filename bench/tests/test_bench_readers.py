@@ -5,15 +5,15 @@ only the window's part before the profiler started. A cell whose quotas
 move checks requests resumed after a preemption."""
 import pytest
 
-from bench import harness
+from bench import harness, modules
 from bench.counts.attention import flash_prefill, paged_decode
 from bench.counts.peaks import roofline_s
 from bench.record import Record
 from bench.tests.small import DENSE, ROOT, run
 from bench.tracing import Kernel, Trace
 
-CFG = {"num_hidden_layers": 2, "num_attention_heads": 4,
-       "num_key_value_heads": 2, "head_dim": 32}
+CFG = {"name": "c", "arch": "decoder", "num_hidden_layers": 2,
+       "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 32}
 
 
 def _rec(kernels, t0=6.0, t1=9.0):
@@ -26,7 +26,8 @@ def _rec(kernels, t0=6.0, t1=9.0):
                  decodes=[(2.0, 2.1, "a", [10, 20]),
                           (7.0, 7.1, "a", [10, 20]),
                           (10.0, 10.1, "a", [10, 20])],
-                 rounds=[(3.0, 3.001), (8.0, 8.004)])
+                 rounds=[(3.0, 3.001), (8.0, 8.004)],
+                 arch=modules.program(CFG))
     rec.trace = Trace(t0, t1, kernels)
     return rec
 

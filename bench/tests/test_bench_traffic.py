@@ -33,6 +33,21 @@ def test_work_is_fixed_across_seeds(cell, over):
     assert len(seen) == 1
 
 
+@pytest.mark.parametrize("cell,over", [(c, {}) for c in CELLS]
+                         + [("olmoe.docqa", {"shift": SHIFT})])
+def test_no_request_is_due_just_before_an_edge(cell, over):
+    """Every request due before an edge of the window is due at least
+    the guard before it, so its prefill starts on its own side."""
+    for seed in (1, 2, 2**31 + 11):
+        t, reqs = _gen(cell, seed, **over)
+        g = traffic.EDGE_GUARD_S
+        assert not [r for r in reqs if -g <= r["due"] < 0
+                    or 48 - g <= r["due"] < 48]
+        assert any(-12 <= r["due"] < 0 for r in reqs)
+    _, reqs = _gen(cell, 1, edge_guard_s=0.25, **over)
+    assert not [r for r in reqs if 47.75 <= r["due"] < 48]
+
+
 def test_seed_changes_order_and_timing():
     _, a = _gen("olmoe.docqa", 1)
     _, b = _gen("olmoe.docqa", 2)

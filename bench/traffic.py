@@ -7,7 +7,12 @@ uniform times. Lengths are stratified quantiles of a clipped log-normal,
 shuffled, and tenants are dealt by their shares, shuffled too. So a
 seed changes the order and the timing of the work, never its amount.
 Times are seconds from the start of the measured window: the warm-up
-runs before 0, the window is [0, seconds), the drain after it."""
+runs before 0, the window is [0, seconds), the drain after it.
+
+No request is due in the last ``edge_guard_s`` before either edge of
+the window (0 and ``seconds``): each part's requests start their
+prefills inside it, so the work a window holds is the same for every
+seed, and not a few prompts more or less where arrivals crowd an edge."""
 from __future__ import annotations
 
 import json
@@ -18,6 +23,10 @@ from statistics import NormalDist
 import numpy as np
 
 _N01 = NormalDist()
+
+# seconds before each edge of the window in which no request is due; a
+# traffic file may set its own ``edge_guard_s``
+EDGE_GUARD_S = 1.0
 
 
 def load(root: Path, cell: str) -> dict:
@@ -73,12 +82,14 @@ def generate(t: dict, seconds: float, seed_seq: np.random.SeedSequence,
     (index), ``prompt`` (token ids), ``answer`` (tokens to generate)."""
     times_ss, tokens_ss = seed_seq.spawn(2)
     rng = np.random.default_rng(times_ss)
+    guard = t.get("edge_guard_s", EDGE_GUARD_S)
     reqs = []
     for a, b, shares in segments(t, seconds):
         n = int(round(t["rate_per_s"] * (b - a)))
         if n == 0:
             continue
-        due = a + (b - a) * np.sort(rng.uniform(size=n))
+        end = b - min(guard, (b - a) / 2) if b in (0.0, seconds) else b
+        due = a + (end - a) * np.sort(rng.uniform(size=n))
         plen = lengths(t["prompt"], n, rng)
         alen = lengths(t["answer"], n, rng)
         who = deal(shares, n, rng)
